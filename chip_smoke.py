@@ -1,18 +1,22 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-Drives retake_tpu_torch's main path once at full Qwen2-VL-2B width and depth
+Drives retake_tpu_torch's main paths at full Qwen2-VL-2B width and depth
 (random bf16 weights from a seed): one ReTaKe request through
 ``Qwen2VLEngine.generate`` — ViT in 128-frame chunks, DPSelect keyframe
 mask, chunked prefill of 32 frames, PivotKV down to 32000 tokens with
-position reforge, YaRN x4, greedy decode.
+position reforge, YaRN x4, greedy decode — and six staggered requests
+through the continuous-batching server ``ContinuousServer.run`` (4 decode
+slots over the gap-layout cache, mid-decode admission, compaction).
 
 Phases (each prints; any failure raises and exits non-zero):
-  1. device and environment        4. end to end, with kernel launch counts
-  2. kernel build (nvcc, sm_90a)   5. the same request again, bit-exact
-  3. each kernel vs its plain         (tokens, first logits, KV cache)
-     PyTorch twin at main-path     6. kernel path vs plain path end to end
-     shapes (error + CUDA-event       (first logits, entries PivotKV kept)
-     medians)
+  1. device and environment        5. the same request again, bit-exact
+  2. kernel build (nvcc, sm_90a)      (tokens, first logits, KV cache)
+  3. each kernel vs its plain      6. kernel path vs plain path end to end
+     PyTorch twin at main-path        (first logits, entries PivotKV kept)
+     shapes (error + CUDA-event    7. the server: 6 requests, 4 slots, with
+     medians)                         kernel launch counts
+  4. end to end, with kernel       8. one batched decode step, kernel path
+     launch counts                    vs plain path (first-step logits)
 
 The last two stdout lines are the kernels record and
 ``{"ok": true, "device": {...}}``; before them, the card's name and power
@@ -20,8 +24,9 @@ limit as nvidia-smi prints them.
 
 Usage:  python3 chip_smoke.py [--frames 512] [--seed 0] [--profile]
 
-``--profile`` adds one more warm request under torch.profiler and prints
-the CUDA kernels by device time and the device-busy share of the request.
+``--profile`` adds one more warm request and one more batched decode step
+under torch.profiler and prints the CUDA kernels by device time and the
+device-busy share of each.
 """
 
 from __future__ import annotations
@@ -61,6 +66,12 @@ RETAKE_CONFIG = {
     },
 }
 MAX_NEW_TOKENS = 16
+# the serving phase: ContinuousServer(engine, **SERVE_KW) over six requests
+# (frames, arrival s, own max_new_tokens or None); seeds 0-5
+SERVE_KW = dict(batch_slots=4, segment_steps=8, max_new_tokens=32, prefill_bucket=40960,
+                gap_capacity=32)
+SERVE_REQUESTS = [(512, 0.0, None), (64, 0.0, 17), (256, 0.0, None), (128, 0.0, None),
+                  (64, 1.0, None), (128, 2.0, None)]
 # tolerances, kernel vs plain twin on the same bf16 inputs (N(0, 1) draws).
 # K1/K3 write bf16 outputs and round p to bf16 (K1 before normalizing, its
 # twin after): each case is held to BF16_STEPS steps of bf16 at its own
@@ -82,6 +93,10 @@ K2_TOL = 1e-4
 # the H100, so near-ties moved 1.5% of the entries; the bound allows 6x that.
 E2E_REL_LOGIT_TOL = 0.05
 E2E_MIN_KEPT_AGREEMENT = 0.9
+# K4 against its plain twin: the merged attention output (bf16) to
+# BF16_STEPS steps of bf16 at each case's largest output; the row max m is
+# a max of fp32 dot products, summed in another order: 1e-3 abs
+K4_M_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -232,16 +247,77 @@ def phase_kernels(dev, records):
     del qkv, got, want
     torch.cuda.empty_cache()
 
+    # K4: gap-layout batched decode at the serving shapes of phase 7 (2B
+    # heads, 4 slots, the 43008-column bucket, a free slot), with and
+    # without per-slot dec_start, a 7B-shaped case and a tail S that is no
+    # multiple of the 64-column tile. Cases: (B, KV, G, S, final_len,
+    # dec_start or None, gap_start, gap_filled)
+    from retake_tpu_torch.ops import attention
+    from retake_tpu_torch.ops.cuda import decode_gapped
 
-def profile_request(engine, ids, patches, grid):
-    """One request under torch.profiler: kernels by device time, busy share."""
+    k4 = decode_gapped.decode_gapped_flash_state
+    cases = [
+        (4, 2, 6, 43008, [32002, 18498, 4674, 0], [40960, 40976, 40992, 40960], 40960, 64),
+        (4, 2, 6, 43008, [32002, 18498, 4674, 0], None, 40960, 64),
+        (4, 4, 7, 8192, [8000, 1, 5000, 0], [8100, 8110, 8120, 8100], 8100, 60),
+        (2, 2, 6, 1000, [850, 0], [900, 930], 900, 70),
+    ]
+    worst = 0.0
+    for ci, (b, kvh, g, s, fl, ds, gap_start, gap_filled) in enumerate(cases):
+        q = bf16(gen, (b, kvh * g, d), dev)
+        kc, vc = bf16(gen, (b, kvh, s, d), dev), bf16(gen, (b, kvh, s, d), dev)
+        kn, vn = bf16(gen, (b, kvh, d), dev), bf16(gen, (b, kvh, d), dev)
+        final_len = i32(fl)
+        dec_start = None if ds is None else i32(ds)
+        args = (q, kc, vc, final_len, gap_start, gap_filled, kn, vn)
+        got = attention.decode_attention_batch_gapped(*args, dec_start=dec_start, impl="pallas")
+        want = attention.decode_attention_batch_gapped(*args, dec_start=dec_start, impl="xla")
+        dec0 = i32([gap_start] * b) if ds is None else dec_start
+        q4 = q.reshape(b, kvh, g, d)
+        we = gap_start + gap_filled
+        state = k4(q4, kc, vc, final_len, dec0, we)
+        again = k4(q4, kc, vc, final_len, dec0, we)
+        _, pm, _ = decode_gapped.decode_gapped_flash_state_plain(q4, kc, vc, final_len, dec0, we)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(state, again)), "K4 not bitwise repeatable")
+        err, tol = max_err(got, want), bf16_tol(want)
+        m_err = max_err(state[1], pm)
+        worst = max(worst, err)
+        log(f"K4 B={b} KV={kvh} G={g} S={s} dec_start={'per slot' if ds else 'None'}: max|out| "
+            f"{want.float().abs().max().item():.3e} max_abs_err {err:.3e} (tol {tol:.3e}), "
+            f"m err {m_err:.3e} (tol {K4_M_TOL})")
+        check(err <= tol and m_err <= K4_M_TOL, ("K4", ci, err, tol, m_err))
+        if ci == 0:
+            t_k = cuda_ms(lambda: k4(q4, kc, vc, final_len, dec0, we), 20)
+            t_p = cuda_ms(lambda: decode_gapped.decode_gapped_flash_state_plain(
+                q4, kc, vc, final_len, dec0, we), 5)
+            t_ka = cuda_ms(lambda: attention.decode_attention_batch_gapped(
+                *args, dec_start=dec_start, impl="pallas"), 20)
+            t_pa = cuda_ms(lambda: attention.decode_attention_batch_gapped(
+                *args, dec_start=dec_start, impl="xla"), 5)
+            live = sum(fl) + sum(we - x for x in ds)
+            log(f"K4 serving case: kernel {t_k:.4f} ms plain {t_p:.4f} ms; with the merge: "
+                f"kernel arm {t_ka:.4f} ms plain arm {t_pa:.4f} ms; live K/V "
+                f"{live * kvh * d * 2 * 2 / 1e6:.1f} MB -> {live * kvh * d * 4 / t_k / 1e6:.0f} GB/s")
+        del q, kc, vc, kn, vn, got, want, state, again
+    records["K4"] = dict(
+        name="decode_gapped_flash_state", route="cuda",
+        source="retake_tpu_torch/csrc/decode_gapped.cu",
+        replaces="retake_tpu/ops/pallas/decode_gapped.py:220",
+        max_abs_err=worst, ms=t_k, plain_ms=t_p,
+    )
+    torch.cuda.empty_cache()
+
+
+def profile_run(fn, what: str):
+    """``fn()`` under torch.profiler: kernels by device time, busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.generate(ids, patches, grid, max_new_tokens=MAX_NEW_TOKENS)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     avgs = prof.key_averages()
@@ -251,7 +327,7 @@ def profile_request(engine, ids, patches, grid):
                    and not e.key.startswith("Command Buffer")),
                   key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in kern) / 1e6
-    log(f"[p] profiled request: wall {wall:.3f} s, device busy {busy:.3f} s "
+    log(f"[p] profiled {what}: wall {wall:.3f} s, device busy {busy:.3f} s "
         f"({100 * busy / wall:.1f}%, profiler on)")
     for e in kern[:25]:
         log(f"[p]   {e.self_device_time_total / 1e3:10.1f} ms  x{e.count:<6d} {e.key[:90]}")
@@ -276,11 +352,119 @@ def build_request(cfg, num_frames: int, dev, seed: int):
     return ids, patches, np.array([[grid_t, GRID_H, GRID_W]])
 
 
+def phase_serve(cfg, model, rt, dev, seed: int) -> dict:
+    """ContinuousServer.run over SERVE_REQUESTS with decode_attn_impl left at
+    "auto"; returns the kernels' launch counts of this run."""
+    from retake_tpu_torch.ops.cuda import decode_gapped, flash_prefill, pivot_scores, vit_attention
+    from retake_tpu_torch.runtime.engine import Qwen2VLEngine
+    from retake_tpu_torch.runtime.serve import ContinuousServer
+
+    engine = Qwen2VLEngine(cfg, model, rt, device=dev)
+    server = ContinuousServer(engine, **SERVE_KW)
+    check(server.decode_attn_impl == "pallas", ("decode_attn_impl auto ->", server.decode_attn_impl))
+    reqs, budgets = [], []
+    for i, (frames, _, own_max) in enumerate(SERVE_REQUESTS):
+        ids, patches, grid = build_request(cfg, frames, dev, seed + i)
+        req = dict(input_ids=ids, pixel_values_videos=patches, video_grid_thw=grid)
+        if own_max is not None:
+            req["max_new_tokens"] = own_max
+        reqs.append(req)
+        budgets.append(own_max or SERVE_KW["max_new_tokens"])
+    kernels = (flash_prefill.flash_prefill_attention, pivot_scores.pivot_score_sums,
+               vit_attention.vit_attention_qkv, decode_gapped.decode_gapped_flash_state)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = server.run(reqs, arrival_times=[a for _, a, _ in SERVE_REQUESTS])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    st = server.stats
+    log(f"[7] served {len(results)} requests in {wall:.3f} s; stats {json.dumps(st)}")
+    log(f"[7] launches {launches}")
+    for r, (frames, arrival, _), budget in zip(results, SERVE_REQUESTS, budgets):
+        log(f"[7]   req {r.request_id}: {frames} frames, arrival {arrival:.1f} s, prefill start "
+            f"{r.prefill_start_s:.3f} s, TTFT {r.ttft_s:.3f} s, finish {r.finish_s:.3f} s, "
+            f"{len(r.tokens)}/{budget} tokens {r.tokens[:4].tolist()}")
+        check(not r.cancelled and len(r.tokens) == budget, ("tokens", r.request_id, len(r.tokens)))
+        check(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all(), r.tokens)
+    check(st["compactions"] >= 1, st)
+    # requests 0-3 fill the 4 slots; 4 and 5 can only enter a slot freed by
+    # a finished request while the others still decode
+    first_free = min(r.finish_s for r in results[:4])
+    late = results[4]
+    check(late.prefill_start_s >= first_free
+          and any(r.finish_s > late.first_token_s for r in results if r is not late),
+          ("mid-run admission", first_free, late.prefill_start_s))
+    seg = SERVE_KW["segment_steps"]
+    k4_want = cfg.num_hidden_layers * seg * st["segments_dispatched"]
+    check(launches["decode_gapped_flash_state"] == k4_want, (launches, k4_want))
+    check(all(v > 0 for v in launches.values()), launches)
+    n_dec = sum(len(r.tokens) - 1 for r in results)
+    ttft = sorted(r.ttft_s for r in results)
+    log(f"[7] served decode: {n_dec} tokens in {wall:.3f} s = {n_dec / wall:.2f} tok/s "
+        f"(whole run, prefills included); TTFT p50 {np.percentile(ttft, 50):.3f} s, p95 "
+        f"{np.percentile(ttft, 95):.3f} s; peak memory {peak / 2**30:.2f} GiB")
+    del server, engine, results
+    return launches
+
+
+def phase_decode_step(cfg, model, rt, dev, seed: int, profile: bool) -> None:
+    """Three real prefills (64, 256, 512 frames) gathered into a gap-layout
+    cache at the server's bucket; one text.decode_step_batch with K4 and one
+    with the plain arm, held to the first-step logits. ``profile``: one more
+    K4 step under torch.profiler."""
+    from retake_tpu_torch.models.qwen2_vl import text
+    from retake_tpu_torch.runtime.engine import Qwen2VLEngine, assemble_gap_cache
+
+    engine = Qwen2VLEngine(cfg, model, rt, device=dev)
+    max_new = SERVE_KW["max_new_tokens"]
+    states = []
+    for i, frames in enumerate((64, 256, 512)):
+        ids, patches, grid = build_request(cfg, frames, dev, seed + 10 + i)
+        states.append(engine.generate(ids, patches, grid, max_new_tokens=max_new,
+                                      _prefill_only=True))
+    final_lens = [st.final_len for st in states]
+    gap_start = SERVE_KW["prefill_bucket"]
+    s_attn = gap_start + 2048
+    firsts = [st.first_token_host for st in states]
+    pos_rest = torch.tensor([st.decode_pos_base for st in states], dtype=torch.int32).to(dev)
+    k_all, v_all, base_t = assemble_gap_cache(states, s_attn)
+    final_len = torch.tensor(final_lens, dtype=torch.int32).to(dev)
+    hidden = text.embed(model, torch.tensor(firsts, dtype=torch.int64).to(dev))
+    logits, ms = {}, {}
+    for impl in ("pallas", "xla", "xla", "pallas"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h, _, _ = text.decode_step_batch(model, cfg, k_all, v_all, hidden, base_t, pos_rest,
+                                         final_len, gap_start, 0, attn_impl=impl)
+        out = text.final_logits_batch(model, cfg, h)
+        torch.cuda.synchronize()
+        ms.setdefault(impl, []).append(1e3 * (time.perf_counter() - t0))
+        logits[impl] = out
+    a, b = logits["pallas"], logits["xla"]
+    check(bool(torch.isfinite(a).all()) and a.shape == (3, cfg.vocab_size), a.shape)
+    rel = max_err(a, b) / b.abs().max().item()
+    log(f"[8] decode step over prefills {final_lens} (bucket {s_attn}): logits max|diff| "
+        f"{max_err(a, b):.4e} (rel {rel:.4f}, bound {E2E_REL_LOGIT_TOL}); step ms (host wall, "
+        f"synchronized, 2 each) kernel {ms['pallas']} plain {ms['xla']}")
+    check(rel <= E2E_REL_LOGIT_TOL, rel)
+    if profile:
+        profile_run(lambda: text.final_logits_batch(model, cfg, text.decode_step_batch(
+            model, cfg, k_all, v_all, hidden, base_t, pos_rest, final_len, gap_start, 0,
+            attn_impl="pallas")[0]), "decode step (K4)")
+    del k_all, v_all, states, engine
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=512, help="raw video frames (2048 = bench)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--profile", action="store_true", help="profile one more warm request")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one more warm request and decode step")
     args = ap.parse_args()
 
     # 1. device and environment
@@ -291,7 +475,9 @@ def main() -> int:
     from retake_tpu_torch.models.qwen2_vl import params as params_lib
     from retake_tpu_torch.models.qwen2_vl.config import qwen2_vl_2b
     from retake_tpu_torch.models.qwen2_vl.model import Qwen2VLModel
-    from retake_tpu_torch.ops.cuda import _build, flash_prefill, pivot_scores, vit_attention
+    from retake_tpu_torch.ops.cuda import (
+        _build, decode_gapped, flash_prefill, pivot_scores, vit_attention,
+    )
     from retake_tpu_torch.runtime.engine import Qwen2VLEngine, plan_chunks
     from retake_tpu_torch.utils.config import RetakeConfig
 
@@ -377,7 +563,8 @@ def main() -> int:
         + json.dumps({k: round(v, 4) for k, v in (res2.stages or {}).items()}))
     del res, res2
     if args.profile:
-        profile_request(engine, ids, patches, grid)
+        profile_run(lambda: engine.generate(ids, patches, grid, max_new_tokens=MAX_NEW_TOKENS),
+                    "request")
     del engine, patches
     torch.cuda.empty_cache()
 
@@ -401,11 +588,21 @@ def main() -> int:
         f"in common {kept:.4f} (bound {E2E_MIN_KEPT_AGREEMENT}); tokens "
         f"{a.tokens[:4].tolist()} / {b.tokens[:4].tolist()}")
     check(rel <= E2E_REL_LOGIT_TOL and kept >= E2E_MIN_KEPT_AGREEMENT, (rel, kept))
+    del out, a, b, eng
+    torch.cuda.empty_cache()
+
+    # 7. the continuous-batching server: six staggered requests, 4 slots
+    serve_launches = phase_serve(cfg, model, rt, dev, args.seed)
+    torch.cuda.empty_cache()
+
+    # 8. one batched decode step over three real prefills, kernel vs plain
+    phase_decode_step(cfg, model, rt, dev, args.seed, args.profile)
 
     kernel_line = {"kernels": []}
-    for key, fn in zip(("K1", "K2", "K3"), kernels):
+    for key, fn in zip(("K1", "K2", "K3", "K4"), kernels + (decode_gapped.decode_gapped_flash_state,)):
         rec = dict(records[key])
-        rec["launches"] = launches[fn.__name__]
+        # K1-K3: the single-request run of phase 4; K4: the server of phase 7
+        rec["launches"] = launches[fn.__name__] if key != "K4" else serve_launches[fn.__name__]
         kernel_line["kernels"].append(rec)
     log(smi)
     print(json.dumps(kernel_line))

@@ -13,6 +13,9 @@
   attention and K2 (``ops/cuda/pivot_scores.py``) for eviction scores, which
   launch the CUDA kernels on CUDA tensors; ``"xla"``: the plain torch path
   (masked full attention, ``pivotkv.eviction_scores``).
+* ``decode_step_batch`` runs one token for B slots of the gap-layout cache
+  ``[L, B, KV, S, D]``; its ``"pallas"`` attention is K4
+  (``ops/cuda/decode_gapped.py``), ``"xla"`` the masked full-bucket softmax.
 
 Numerics follow the JAX module: activations in the model dtype, fp32
 RMSNorm statistics (normalize, cast, then scale), fp32 softmax, and the
@@ -242,3 +245,49 @@ def final_logits(model: TextDecoder, cfg: Qwen2VLConfig, hidden_last: torch.Tens
 
 def embed(model: TextDecoder, token_ids: torch.Tensor) -> torch.Tensor:
     return model.embed_tokens[token_ids]
+
+
+def decode_step_batch(
+    model: TextDecoder,
+    cfg: Qwen2VLConfig,
+    k_all: torch.Tensor,  # [L, B, KV, S, D] batched gap-layout key cache
+    v_all: torch.Tensor,
+    hidden: torch.Tensor,  # [B, d] current-token embeddings
+    base_t: torch.Tensor,  # [L, B] int32 per-layer temporal position base
+    pos_rest: torch.Tensor,  # [B] int32 — M-RoPE rows 1/2 position this step
+    final_len: torch.Tensor,  # [B] int32 prefill lengths
+    gap_start: int,  # uniform decode-region base column
+    gap_filled: int,  # decode steps already written
+    dec_start=None,  # [B] int32 per-slot decode-region start; None = gap_start
+    attn_impl: str = "xla",  # "pallas": K4; "xla": full-bucket masked softmax
+):
+    """One batched decode step; the batch axis stands in for the token axis
+    of ``_layer_qkv`` / ``_layer_out_mlp``, so the per-layer numerics are the
+    sequential path's. Positions continue analytically: layer l's temporal
+    row is ``base_t[l] + gap_filled`` and rows 1/2 are ``pos_rest``. Reads
+    the caches only; returns (hidden [B, d], k_blocks [L, B, KV, D],
+    v_blocks) for the caller to write at column ``gap_start + gap_filled``."""
+    inv_freq, attention_scaling = _inv_freq(cfg, str(hidden.device))
+    b = hidden.shape[0]
+    k_blocks, v_blocks = [], []
+    for i in range(cfg.num_hidden_layers):
+        lp = model.layers.layer(i)
+        pos3 = torch.stack([base_t[i] + gap_filled, pos_rest, pos_rest]).to(torch.int32)
+        cos, sin = _mrope_tables(cfg, inv_freq, pos3, attention_scaling, hidden.dtype)
+        q_rot, k_rot, v = _layer_qkv(cfg, lp, hidden, cos, sin)  # [H, B, D]
+        k_b, v_b = k_rot.transpose(0, 1), v.transpose(0, 1)  # [B, KV, D]
+        attn = attn_ops.decode_attention_batch_gapped(
+            q_rot.transpose(0, 1), k_all[i], v_all[i], final_len, gap_start,
+            gap_filled, k_b, v_b, dec_start=dec_start, impl=attn_impl,
+        )  # [B, H, D]
+        hidden = _layer_out_mlp(cfg, lp, hidden, attn.reshape(b, -1))
+        k_blocks.append(k_b)
+        v_blocks.append(v_b)
+    return hidden, torch.stack(k_blocks), torch.stack(v_blocks)
+
+
+def final_logits_batch(model: TextDecoder, cfg: Qwen2VLConfig, hidden: torch.Tensor):
+    """Final RMSNorm + LM head on a batch of hidden states [B, d] -> fp32 [B, V]."""
+    h = rms_norm(hidden, model.final_ln, cfg.rms_norm_eps)
+    head = model.lm_head if model.lm_head is not None else model.embed_tokens.T
+    return (h @ head).to(torch.float32)

@@ -3,8 +3,11 @@
 
 Key/value tensors have the full static budget shape and validity is a mask.
 ``chunk_prefill_attention`` is the plain version of K1
-(``ops/cuda/flash_prefill.py``); decode has no kernel and runs
-``decode_attention_appendfree`` here on every device.
+(``ops/cuda/flash_prefill.py``); sequential decode has no kernel and runs
+``decode_attention_appendfree`` here on every device. Batched decode over
+the gap-layout cache (``decode_attention_batch_gapped``) has two arms:
+``"pallas"`` calls K4 (``ops/cuda/decode_gapped.py``) and merges the current
+token, ``"xla"`` is the masked full-bucket softmax, K4's plain twin.
 
 Numerics: logits and softmax in float32; matmul inputs in the activation
 dtype with float32 accumulation (the inputs are upcast before the product,
@@ -14,6 +17,8 @@ which is exact for bf16 values), outputs in the activation dtype.
 from __future__ import annotations
 
 import torch
+
+from retake_tpu_torch.ops.cuda import decode_gapped
 
 NEG_INF = -1e30
 
@@ -114,3 +119,67 @@ def decode_attention_appendfree(
         + p_s * _f32(value_new[:, 0])[:, None, :]
     ) / denom
     return out.reshape(num_heads, 1, head_dim).to(query.dtype)
+
+
+def decode_attention_batch_gapped(
+    query: torch.Tensor,  # [B, H, D]
+    key_cache: torch.Tensor,  # [B, KV, S, D], or [L, B, KV, S, D] with ``layer``
+    value_cache: torch.Tensor,
+    final_len: torch.Tensor,  # [B] int32 — valid prefill tokens per slot
+    gap_start,  # int — batch-uniform decode-region base column
+    gap_filled,  # int — decode tokens already written
+    key_new: torch.Tensor,  # [B, KV, D] the current token's key
+    value_new: torch.Tensor,  # [B, KV, D]
+    k_scale=None,
+    v_scale=None,
+    dec_start=None,  # [B] int32 per-slot decode-region start; None = gap_start
+    layer=None,  # int: index the layer of a stacked cache (a free view here)
+    impl: str = "xla",  # "pallas": K4 + append-free merge; "xla": plain softmax
+) -> torch.Tensor:
+    """Batched single-token attention over gap-layout caches.
+
+    Every slot's decode tokens are written at the shared column
+    ``gap_start + step``, so a slot's live keys are ``[0, final_len[b])``
+    (its prefill) and ``[dec_start[b], gap_start + gap_filled)`` (its own
+    decode region); the columns between are masked. The current token's
+    key/value merge into the same softmax without being appended, as in
+    ``decode_attention_appendfree``. Returns [B, H, D] in the query dtype.
+    """
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError("the int8 KV cache is not ported to retake_tpu_torch yet")
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"impl must be 'xla' or 'pallas', got {impl!r}")
+    if layer is not None:
+        key_cache, value_cache = key_cache[layer], value_cache[layer]
+    b, num_heads, head_dim = query.shape
+    num_kv, s = key_cache.shape[1], key_cache.shape[2]
+    group = num_heads // num_kv
+    q = query.reshape(b, num_kv, group, head_dim)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(head_dim), dtype=torch.float32))
+    dec0 = torch.full_like(final_len, gap_start) if dec_start is None else dec_start
+    write_end = gap_start + gap_filled
+    logit_s = torch.einsum("bkgd,bkd->bkg", _f32(q), _f32(key_new)) * scale
+
+    if impl == "pallas":
+        acc, m, l = decode_gapped.decode_gapped_flash_state(
+            q.contiguous(), key_cache, value_cache, final_len, dec0, write_end
+        )
+        m2 = torch.maximum(m, logit_s)
+        w_acc = torch.exp(m - m2)[..., None]
+        w_s = torch.exp(logit_s - m2)[..., None]
+        out = (acc * w_acc + w_s * _f32(value_new)[:, :, None, :]) / (l[..., None] * w_acc + w_s)
+        return out.reshape(b, num_heads, head_dim).to(query.dtype)
+
+    valid = decode_gapped.live_columns(s, final_len, dec0, write_end, query.device)
+    logits_c = torch.matmul(_f32(q), _f32(key_cache).transpose(-1, -2)) * scale
+    logits_c = torch.where(valid[:, None, None, :], logits_c, NEG_INF)  # [B, KV, G, S]
+    logit_s = logit_s[..., None]
+    m = torch.maximum(logits_c.amax(dim=-1, keepdim=True), logit_s)
+    p_c = torch.exp(logits_c - m)
+    p_s = torch.exp(logit_s - m)
+    denom = p_c.sum(dim=-1, keepdim=True) + p_s
+    out = (
+        torch.matmul(_f32(p_c.to(query.dtype)), _f32(value_cache))
+        + p_s * _f32(value_new)[:, :, None, :]
+    ) / denom
+    return out.reshape(b, num_heads, head_dim).to(query.dtype)

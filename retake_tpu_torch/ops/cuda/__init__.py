@@ -8,4 +8,6 @@ the kernel or raises — it never falls back.
   flash_prefill.flash_prefill_attention  K1 <- ops/pallas/flash_prefill.py
   pivot_scores.pivot_score_sums          K2 <- ops/pallas/pivot_scores.py
   vit_attention.vit_attention_qkv        K3 <- ops/pallas/vit_attention.py
+  decode_gapped.decode_gapped_flash_state
+                                         K4 <- ops/pallas/decode_gapped.py
 """

@@ -32,6 +32,8 @@ SIGNATURES = {
     "retake_flash_prefill_bf16": [_P] * 8 + [_I] * 5 + [_P],
     "retake_pivot_scores_bf16": [_P] * 5 + [_I] * 4 + [_P],
     "retake_vit_attention_bf16": [_P] * 4 + [_I] * 4 + [_P],
+    "retake_decode_gapped_bf16": [_P] * 10 + [_I] * 6 + [_P],
+    "retake_decode_gapped_split_count": [_I],
 }
 
 _lib = None

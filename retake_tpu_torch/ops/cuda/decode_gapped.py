@@ -1,0 +1,109 @@
+"""K4: batched gap-layout decode attention state (CUDA kernel ``csrc/decode_gapped.cu``).
+
+Replaces ``retake_tpu/ops/pallas/decode_gapped.py:decode_gapped_flash_state``
+(bf16 mode; the int8-KV mode is not ported yet). For each slot b, KV head
+and query row g it returns the unnormalized flash state over the slot's live
+columns ``[0, final_len[b]) u [dec_start[b], write_end)``: ``acc`` [B, KV, G,
+D], ``m`` and ``l`` [B, KV, G], all fp32. A slot with no live column gives
+m = -1e30, l = 0, acc = 0. ``ops.attention.decode_attention_batch_gapped``
+merges the current token and normalizes.
+
+The TPU kernel's block rules (``_pick_block_k``, ROWS padding, the dense
+grid's divisor search) are not carried over: the CUDA kernel takes any S and
+masks its own tail tile. The serving loop hands it the contiguous view
+``k_all[layer]``, so there is no stacked-cache mode either.
+
+On CUDA, ``final_len`` and ``dec_start`` are int32 device tensors [B] that
+the kernel reads itself, and ``write_end`` is a host int (the server's write
+pointer lives on the host), so a launch needs no device read.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from retake_tpu_torch.ops.cuda import _build, _checks
+
+NEG_INF = -1e30
+MAX_GROUP = 16  # query rows per KV head: one mma.sync row tile
+
+
+def live_columns(s: int, final_len, dec_start, write_end, device) -> torch.Tensor:
+    """[B, S] bool: column j of slot b is live."""
+    idx = torch.arange(s, device=device)[None, :]
+    return (idx < final_len[:, None]) | ((idx >= dec_start[:, None]) & (idx < write_end))
+
+
+def decode_gapped_flash_state_plain(
+    query: torch.Tensor,  # [B, KV, G, D]
+    key_cache: torch.Tensor,  # [B, KV, S, D]
+    value_cache: torch.Tensor,
+    final_len: torch.Tensor,  # [B] int
+    dec_start: torch.Tensor,  # [B] int
+    write_end,  # int or 0-d int tensor
+):
+    """Plain version of K4: the same unnormalized state from an fp32 masked
+    softmax over the whole bucket. p is rounded to the query dtype before
+    the product with V, as the TPU kernel and the CUDA kernel round it."""
+    d = query.shape[-1]
+    q = query.to(torch.float32)
+    logits = torch.matmul(q, key_cache.to(torch.float32).transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    valid = live_columns(key_cache.shape[2], final_len, dec_start, write_end, query.device)
+    valid = valid[:, None, None, :]
+    logits = torch.where(valid, logits, NEG_INF)
+    m = logits.amax(dim=-1)
+    p = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.matmul(p.to(query.dtype).to(torch.float32), value_cache.to(torch.float32))
+    return acc, m, l
+
+
+def decode_gapped_flash_state(
+    query: torch.Tensor,  # [B, KV, G, D] current-token queries (RoPE'd)
+    key_cache: torch.Tensor,  # [B, KV, S, D]
+    value_cache: torch.Tensor,
+    final_len: torch.Tensor,  # [B] int32 (device tensor on CUDA)
+    dec_start: torch.Tensor,  # [B] int32
+    write_end,  # host int on CUDA (int or 0-d tensor on CPU)
+):
+    """Unnormalized flash state (acc, m, l) over each slot's live columns."""
+    if query.device.type == "cpu":
+        return decode_gapped_flash_state_plain(
+            query, key_cache, value_cache, final_len, dec_start, write_end
+        )
+    name = "decode_gapped_flash_state"
+    _checks.on_cuda(name, query, key_cache, value_cache, final_len, dec_start)
+    _checks.dtype(name, torch.bfloat16, query, key_cache, value_cache)
+    _checks.dtype(name, torch.int32, final_len, dec_start)
+    b, kv, g, d = query.shape
+    s = key_cache.shape[2]
+    if g > MAX_GROUP or d not in (64, 128):
+        raise ValueError(f"{name}: unsupported group {g} or head_dim {d}")
+    _checks.shape(name, key_cache, (b, kv, s, d))
+    _checks.shape(name, value_cache, (b, kv, s, d))
+    _checks.shape(name, final_len, (b,))
+    _checks.shape(name, dec_start, (b,))
+    if not isinstance(write_end, int):
+        raise TypeError(f"{name}: write_end must be a host int on CUDA")
+    lib = _build.library()
+    n_split = lib.retake_decode_gapped_split_count(s)
+    dev = query.device
+    part_acc = torch.empty((b * kv, n_split, g, d), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((b * kv, n_split, 2, g), dtype=torch.float32, device=dev)
+    acc = torch.empty((b, kv, g, d), dtype=torch.float32, device=dev)
+    m = torch.empty((b, kv, g), dtype=torch.float32, device=dev)
+    l = torch.empty((b, kv, g), dtype=torch.float32, device=dev)
+    rc = lib.retake_decode_gapped_bf16(
+        query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
+        final_len.data_ptr(), dec_start.data_ptr(), part_acc.data_ptr(),
+        part_ml.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        b, kv, g, s, d, write_end, _build.stream_of(query),
+    )
+    _build.check(rc, name)
+    decode_gapped_flash_state.launches += 1
+    return acc, m, l
+
+
+decode_gapped_flash_state.launches = 0

@@ -1,5 +1,6 @@
 """Chunked-prefill inference engine for Qwen2-VL, the ReTaKe runtime
-(port of ``retake_tpu/runtime/engine.py``, sequential ``generate``).
+(port of ``retake_tpu/runtime/engine.py``: sequential ``generate``, the
+prefill-only split and batched decode over the gap-layout cache).
 
   host (numpy, once per request)           device (torch, eager)
   ---------------------------------        ---------------------------------
@@ -17,10 +18,17 @@ the cache length stays on the device, so chunk steps run without host
 reads; the host waits only for the first token and (with early stop) for
 each decoded token one step late.
 
+Batched decode (``generate_batch`` / ``decode_batch``; the continuous server
+in ``runtime/serve.py``) prefills each request alone (``generate(...,
+_prefill_only=True)`` -> ``PrefillState``), copies the caches into one
+``[L, B, KV, S, D]`` gap-layout buffer and decodes all slots together:
+every slot's step-i token is written at the shared column ``gap_start + i``
+(a host int, so the append needs no device read).
+
 Not ported yet (raise NotImplementedError): images, sampling, prompt-guided
 compression, prefix / feature reuse across questions, speculative decode,
 int8 / W8A8 quantization and the int8 KV cache, ``attn_implementation:
-flash``, tensor parallelism, batched decode and serving, MA-LLM.
+flash``, tensor parallelism, MA-LLM.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import warnings
 from typing import List, Optional
 
 import numpy as np
@@ -45,6 +54,11 @@ from retake_tpu_torch.utils.profiling import StageTimer
 
 TEXT_BUCKET = 128  # text segments padded to a multiple of this
 BUDGET_BUCKET = 8192  # cache budgets rounded up to a multiple of this
+
+
+def _attn_bucket(fill: int) -> int:
+    """Attention-window bucket covering a given cache fill level."""
+    return max(BUDGET_BUCKET, math.ceil(fill / BUDGET_BUCKET) * BUDGET_BUCKET)
 
 
 @dataclasses.dataclass
@@ -71,6 +85,33 @@ class VideoFeatures:
     tgt: int
     hw: int
     grid: tuple
+
+
+@dataclasses.dataclass
+class PrefillState:
+    """Everything batched decode needs from one request's prefill."""
+
+    cache: Optional[cache_lib.KVCache]  # consumed (set to None) by batched decode
+    first_token_host: int
+    decode_pos_base: int
+    final_len: int
+    reforge: bool
+    result: GenerationResult  # prefill-only result (tokens = [first])
+    # the attention bucket this request decodes in (_attn_bucket(final_len +
+    # max_new)); the cache is trimmed to it, so pending requests hold their
+    # own need, not a full prefill budget each
+    attn_need: int = 0
+
+
+def _trim_cache(cache: cache_lib.KVCache, need: int) -> cache_lib.KVCache:
+    """Copy a prefilled cache down to its decode bucket, so the full prefill
+    budget is freed (a view would keep it alive)."""
+    return cache_lib.KVCache(
+        k=cache.k[:, :, :need].clone(),
+        v=cache.v[:, :, :need].clone(),
+        pos=cache.pos[:, :, :need].clone(),
+        length=cache.length,
+    )
 
 
 def _not_ported(what: str):
@@ -112,11 +153,13 @@ class Qwen2VLEngine:
 
     # ---------- vision ----------
 
-    def run_vision(self, pixel_values_videos, video_grid_thw) -> torch.Tensor:
+    def run_vision(self, pixel_values_videos, video_grid_thw, on_dispatch=None) -> torch.Tensor:
         """ViT over the video in frame chunks (reference qwen2_vl.py:597-617).
 
         pixel_values_videos: [grid_t*grid_h*grid_w, patch_dim] (numpy or
         tensor). Returns merged LLM-space embeddings [grid_t*h*w/4, d].
+        ``on_dispatch`` (if given) is called after each chunk is enqueued:
+        the continuous server runs decode segments there (runtime/serve.py).
         """
         t, h, w = (int(x) for x in np.asarray(video_grid_thw).reshape(-1)[:3])
         fcs = self.retake.frame_chunk_size or 10**9
@@ -138,6 +181,8 @@ class Qwen2VLEngine:
                     (t * merged_per_t, out.shape[-1]), dtype=out.dtype, device=out.device
                 )
             out_buf[i * merged_per_t : (i + tc) * merged_per_t] = out[: tc * merged_per_t]
+            if on_dispatch is not None:
+                on_dispatch()
         return out_buf
 
     def get_chunk_tokens(self, video_grid_thw) -> Optional[int]:
@@ -151,13 +196,15 @@ class Qwen2VLEngine:
         t_factor = vf.spatial_merge_size**2 * vf.temporal_patch_size
         return min(chunk_frames, t) * h * w // t_factor
 
-    def encode_video(self, pixel_values_videos, video_grid_thw, _timer=None) -> VideoFeatures:
+    def encode_video(
+        self, pixel_values_videos, video_grid_thw, on_dispatch=None, _timer=None
+    ) -> VideoFeatures:
         """Vision tower + DPSelect keyframe selection."""
         timer = _timer or StageTimer()
         cfg, rt = self.cfg, self.retake
         t, h, w = (int(x) for x in np.asarray(video_grid_thw).reshape(-1)[:3])
         with timer.stage("vision_tower"):
-            video_embeds = self.run_vision(pixel_values_videos, (t, h, w))
+            video_embeds = self.run_vision(pixel_values_videos, (t, h, w), on_dispatch)
         hw_m = h * w // cfg.vision.spatial_merge_size**2
         tgt = t
         keymask_np = np.zeros(t * hw_m, bool)
@@ -182,6 +229,44 @@ class Qwen2VLEngine:
 
     # ---------- prefill + decode ----------
 
+    def generate_batch(
+        self, requests: List[dict], max_new_tokens: Optional[int] = None
+    ) -> List[GenerationResult]:
+        """Serve several requests: sequential prefill, batched decode.
+
+        Each request is a dict of ``generate`` kwargs and may carry its own
+        ``max_new_tokens``: the batch decodes the largest budget and each
+        slot stops at its own (``decode_batch`` with ``req_max``), so every
+        result is token-exact against sequential ``generate``. Decode runs
+        the plain attention arm (``decode_batch``'s default), as in the JAX
+        engine."""
+        if not requests:
+            return []
+        if self.attn_impl == "xla":
+            warnings.warn(
+                "generate_batch with attn_implementation 'xla': batched decode uses "
+                "the gap-layout attention, whose fp32 sums run in another order than "
+                "the sequential 'xla' decode, so tokens may differ at near-ties",
+                stacklevel=2,
+            )
+        default_max = max_new_tokens or self.retake.max_new_tokens
+        req_max = [int(req.get("max_new_tokens") or default_max) for req in requests]
+        batch_max = max(req_max)
+        states = [
+            self.generate(
+                **{k: v for k, v in req.items() if k != "max_new_tokens"},
+                max_new_tokens=batch_max, _prefill_only=True,
+            )
+            for req in requests
+        ]
+        results = decode_batch(
+            self.model, self.cfg, self.retake, states, batch_max,
+            early_stop=bool(self.retake.decode_early_stop), req_max=req_max,
+        )
+        for res, m in zip(results, req_max):
+            res.tokens = res.tokens[:m]
+        return results
+
     def generate(
         self,
         input_ids: np.ndarray,
@@ -191,7 +276,11 @@ class Qwen2VLEngine:
         pixel_values=None,
         image_grid_thw=None,
         video_features: Optional[VideoFeatures] = None,
-    ) -> GenerationResult:
+        _prefill_only: bool = False,
+        on_dispatch=None,  # serving hook: called after each ViT chunk and plan step
+    ):
+        """One request: prefill and greedy decode -> ``GenerationResult``;
+        with ``_prefill_only`` the prefill's ``PrefillState`` instead."""
         if pixel_values is not None or image_grid_thw is not None:
             raise _not_ported("image inputs (run_vision_images)")
         if video_features is not None:
@@ -216,7 +305,7 @@ class Qwen2VLEngine:
         video_embeds = None
         keypatch_tokens = np.zeros(len(ids), dtype=bool)
         if pixel_values_videos is not None:
-            vf = self.encode_video(pixel_values_videos, grid[0], _timer=timer)
+            vf = self.encode_video(pixel_values_videos, grid[0], on_dispatch, _timer=timer)
             video_embeds = vf.embeds
             if vf.tgt != vf.t:
                 vi = np.where(ids == cfg.video_token_id)[0]
@@ -235,6 +324,7 @@ class Qwen2VLEngine:
             chunk_tokens=chunk_tokens, decode_pos_base=decode_pos_base,
             max_new_tokens=max_new_tokens, attn_impl=self.attn_impl,
             timer=timer, t_start=t0, device=self.device,
+            prefill_only=_prefill_only, on_dispatch=on_dispatch,
         )
 
 
@@ -292,8 +382,11 @@ def prefill_and_decode(
     timer: StageTimer,
     t_start: float,
     device: torch.device,
-) -> GenerationResult:
-    """Chunked prefill over one static cache budget, then greedy decode."""
+    prefill_only: bool = False,
+    on_dispatch=None,  # called after each plan step is enqueued (serving hook)
+):
+    """Chunked prefill over one static cache budget, then greedy decode
+    (or, with ``prefill_only``, the ``PrefillState`` for batched decode)."""
     s = len(ids)
     ratio = rt.compression_ratio_for(s)
     reforge = rt.kv.pos_embed_reforge and rt.kvcache_compression
@@ -357,6 +450,8 @@ def prefill_and_decode(
                 compress=step["kind"] == "video" and compress_video,
                 reforge=reforge, attn_impl=attn_impl,
             )
+            if on_dispatch is not None:
+                on_dispatch()
     last_valid = plan[-1]["valid"]
 
     with timer.stage("first_token"):
@@ -366,6 +461,21 @@ def prefill_and_decode(
     t_prefill = time.perf_counter() - t_start
     cache_fill = int(kv.length)
     first_logits = logits.cpu().numpy()
+
+    if prefill_only:
+        timer.report()
+        result = GenerationResult(
+            tokens=np.asarray([token_host]), prefill_seconds=t_prefill, cache_len=final_len,
+            input_len=s, cache_fill=cache_fill, first_logits=first_logits,
+            stages=dict(timer.totals) if timer.totals else None,
+        )
+        need = min(_attn_bucket(final_len + max_new_tokens), budget)
+        if need < budget:
+            kv = _trim_cache(kv, need)
+        return PrefillState(
+            cache=kv, first_token_host=token_host, decode_pos_base=decode_pos_base,
+            final_len=final_len, reforge=reforge, result=result, attn_need=need,
+        )
 
     # decode: greedy; with early stop the host checks each token one step
     # late, so it never waits on the step it is enqueuing
@@ -407,3 +517,158 @@ def prefill_and_decode(
         cache=kv,
         stages=dict(timer.totals) if timer.totals else None,
     )
+
+
+# ---------- batched decode over the gap-layout cache ----------
+
+
+def _insert_batch_slot(buf: torch.Tensor, x: torch.Tensor, slot: int) -> None:
+    """Write one request's cache ``x`` [L, KV, n, ...] into batch slot
+    ``slot`` of ``buf`` [L, B, KV, S, ...] in place, zeroing the slot's
+    columns past n (the JAX version writes a zero-padded copy)."""
+    n = x.shape[2]
+    buf[:, slot, :, :n].copy_(x)
+    buf[:, slot, :, n:].zero_()
+
+
+def assemble_gap_cache(states: List[PrefillState], s_attn: int):
+    """Gather prefilled caches into ``[L, B, KV, s_attn, D]`` key / value
+    buffers (slot b = ``states[b]``, its prefill at ``[0, final_len)``) and
+    the per-layer temporal position bases [L, B] int32: the reforged
+    position after the slot's last cached token, or the request's decode
+    position. Consumes each state's cache (``st.cache`` becomes None)."""
+    c0 = states[0].cache
+    n_layers, kv, _, d = c0.k.shape
+    dev = c0.k.device
+    k_all = torch.zeros((n_layers, len(states), kv, s_attn, d), dtype=c0.k.dtype, device=dev)
+    v_all = torch.zeros_like(k_all)
+    bases = []
+    for b, st in enumerate(states):
+        c = st.cache
+        n = min(c.k.shape[2], s_attn)
+        _insert_batch_slot(k_all, c.k[:, :, :n], b)
+        _insert_batch_slot(v_all, c.v[:, :, :n], b)
+        if st.reforge:  # per-layer continuation after eviction (reference qwen2_vl.py:67-73)
+            bases.append(c.pos[:, 0, st.final_len - 1] + 1)
+        else:
+            bases.append(torch.full((n_layers,), st.decode_pos_base, dtype=torch.int32, device=dev))
+        st.cache = None
+    return k_all, v_all, torch.stack(bases, dim=1).to(torch.int32)
+
+
+def _decode_loop_batch(
+    model: Qwen2VLModel,
+    cfg: Qwen2VLConfig,
+    k_all: torch.Tensor,  # [L, B, KV, S, D], written in place
+    v_all: torch.Tensor,
+    base_t: torch.Tensor,  # [L, B] int32
+    pos_bases: torch.Tensor,  # [B] int32
+    final_len: torch.Tensor,  # [B] int32
+    gap_start: int,
+    first_tokens: torch.Tensor,  # [B] int
+    num_steps: int,
+    sampling=None,
+    dec_start=None,  # [B] int32 per-slot decode-region start; None = gap_start
+    i0: int = 0,  # global decode steps taken before this call (write pointer)
+    done0=None,  # [B] bool slots already finished or free; None = first == eos
+    attn_impl: str = "xla",  # "pallas": K4; "xla": full-bucket masked softmax
+    early_stop: bool = False,  # stop once every slot is done (checked one step late)
+    max_steps=None,  # [B] int32 per-slot output budget (max_new_tokens - 1)
+) -> torch.Tensor:
+    """Greedy batched decode: ``num_steps`` steps for all B slots; returns
+    the tokens [num_steps, B] (int64, on the device). Step i's K/V land at
+    the shared column ``gap_start + i``. A slot that is done emits EOS. With
+    ``early_stop`` the host reads ``all(done)`` of the previous step while
+    the current one is queued, so at most one step more than needed runs;
+    the skipped rows stay EOS, as in the JAX while-loop."""
+    if sampling is not None:
+        raise _not_ported("sampling in batched decode")
+    eos = cfg.eos_token_id
+    tokens = first_tokens.to(torch.int64)
+    done = (tokens == eos) if done0 is None else done0.to(torch.bool)
+    out = torch.full((num_steps, tokens.shape[0]), eos, dtype=torch.int64, device=tokens.device)
+    prev_done = None
+    for j in range(num_steps):
+        i = i0 + j
+        hidden, kb, vb = text.decode_step_batch(
+            model, cfg, k_all, v_all, text.embed(model, tokens), base_t, pos_bases + i,
+            final_len, gap_start, i, dec_start=dec_start, attn_impl=attn_impl,
+        )
+        nxt = torch.argmax(text.final_logits_batch(model, cfg, hidden), dim=-1)
+        nxt = torch.where(done, eos, nxt)
+        done = done | (nxt == eos)
+        if max_steps is not None:
+            done = done | (i + 1 >= max_steps)
+        k_all[:, :, :, gap_start + i] = kb.to(k_all.dtype)
+        v_all[:, :, :, gap_start + i] = vb.to(v_all.dtype)
+        out[j] = nxt
+        tokens = nxt
+        if early_stop and prev_done is not None and bool(prev_done.all()):
+            break
+        prev_done = done
+    return out
+
+
+def decode_batch(
+    model: Qwen2VLModel,
+    cfg: Qwen2VLConfig,
+    rt: RetakeConfig,
+    states: List[PrefillState],
+    max_new_tokens: int,
+    attn_impl: str = "xla",  # the plain arm, as in the JAX engine's decode_batch
+    early_stop: bool = False,
+    req_max: Optional[List[int]] = None,  # per-request total token budgets
+) -> List[GenerationResult]:
+    """Batched greedy decode over prefilled requests (``generate_batch``).
+    Requests whose first token is EOS do not join the batch; the others
+    share the decode region starting at their largest ``final_len``."""
+    if not states:
+        return []
+    if any(st.reforge != states[0].reforge for st in states):
+        raise ValueError("decode_batch: mixed reforge settings across prefill states")
+    t0 = time.perf_counter()
+    eos = cfg.eos_token_id
+    out_tokens = [[st.first_token_host] for st in states]
+    live = [i for i, st in enumerate(states) if st.first_token_host != eos]
+    if max_new_tokens > 1 and live:
+        gap_start = max(states[i].final_len for i in live)
+        k_all, v_all, base_t = assemble_gap_cache(
+            [states[i] for i in live], _attn_bucket(gap_start + max_new_tokens)
+        )
+        dev = k_all.device
+
+        def dev_vec(xs, dtype):
+            return torch.tensor(xs, dtype=dtype).to(dev)
+
+        max_steps = None
+        if req_max is not None:
+            max_steps = dev_vec([int(req_max[i]) - 1 for i in live], torch.int32)
+        tokens = _decode_loop_batch(
+            model, cfg, k_all, v_all, base_t,
+            dev_vec([states[i].decode_pos_base for i in live], torch.int32),
+            dev_vec([states[i].final_len for i in live], torch.int32), gap_start,
+            dev_vec([states[i].first_token_host for i in live], torch.int64),
+            max_new_tokens - 1, attn_impl=attn_impl, early_stop=early_stop,
+            max_steps=max_steps,
+        ).cpu().numpy()
+        del k_all, v_all
+        for bi, i in enumerate(live):
+            col = tokens[:, bi]
+            hit = np.flatnonzero(col == eos)
+            out_tokens[i].extend(col[: (hit[0] + 1) if len(hit) else len(col)].tolist())
+    for st in states:
+        st.cache = None
+    t_decode = time.perf_counter() - t0
+    return [
+        GenerationResult(
+            tokens=np.asarray(out_tokens[i]),
+            prefill_seconds=st.result.prefill_seconds,
+            decode_seconds=t_decode,  # the shared batched-decode wall time
+            cache_len=st.result.cache_len,
+            input_len=st.result.input_len,
+            cache_fill=st.result.cache_fill,
+            first_logits=st.result.first_logits,
+            stages=st.result.stages,
+        )
+        for i, st in enumerate(states)
+    ]

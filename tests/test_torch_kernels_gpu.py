@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from retake_tpu_torch.ops.cuda import flash_prefill, pivot_scores, vit_attention
+from retake_tpu_torch.ops import attention
+from retake_tpu_torch.ops.cuda import decode_gapped, flash_prefill, pivot_scores, vit_attention
 
 pytestmark = pytest.mark.gpu
 
@@ -100,6 +101,70 @@ def test_vit_attention_kernel_matches_plain(cuda, s):
     assert err <= _bf16_tol(want), (err, _bf16_tol(want))
 
 
+# K4 cases (B, KV, G, S, final_len, dec_start or None, write_end): the serving
+# shapes of chip_smoke.py (2B heads, 4 slots, the 43008-column bucket, a free
+# slot), a 7B-shaped case, a tail S that is no multiple of the 64-column
+# tile, and a slot with no live column next to one whose decode region alone
+# is live
+K4_CASES = [
+    (4, 2, 6, 43008, [32002, 18498, 4674, 0], [40960, 40976, 40992, 40960], 41024),
+    (4, 2, 6, 43008, [32002, 18498, 4674, 0], None, 40990),
+    (4, 4, 7, 8192, [8000, 1, 5000, 7000], [7800, 8100, 8150, 8150], 8190),
+    (2, 2, 6, 1000, [999, 0], [900, 1000], 1000),
+    (3, 2, 6, 2048, [0, 0, 700], [2048, 1500, 2000], 1530),
+]
+
+
+@pytest.mark.parametrize("case", range(len(K4_CASES)))
+def test_decode_gapped_kernel_matches_plain(cuda, case):
+    # after the merge, bf16 output of an average of N(0, 1) values: p is
+    # rounded to bf16 on both sides, the sums run in another order -> 2 bf16
+    # steps at the largest output; m is a max of fp32 dot products -> 1e-3
+    b, kv, g, s, fl, ds, write_end = K4_CASES[case]
+    rng = np.random.default_rng(100 + case)
+    d = 128
+    q = _bf16(rng, (b, kv, g, d), cuda)
+    kc, vc = _bf16(rng, (b, kv, s, d), cuda), _bf16(rng, (b, kv, s, d), cuda)
+    final_len = _i32(fl, cuda)
+    dec_start = _i32([write_end - 1] * b if ds is None else ds, cuda)
+    n0 = decode_gapped.decode_gapped_flash_state.launches
+    acc, m, l = decode_gapped.decode_gapped_flash_state(q, kc, vc, final_len, dec_start, write_end)
+    again = decode_gapped.decode_gapped_flash_state(q, kc, vc, final_len, dec_start, write_end)
+    torch.cuda.synchronize()
+    assert decode_gapped.decode_gapped_flash_state.launches == n0 + 2
+    for x, y in zip((acc, m, l), again):  # fixed-order sums: bitwise repeatable
+        assert torch.equal(x, y)
+    pacc, pm, pl = decode_gapped.decode_gapped_flash_state_plain(
+        q, kc, vc, final_len, dec_start, write_end
+    )
+    dead = (pl == 0)
+    assert torch.equal(dead, l == 0)
+    assert (m[dead] == decode_gapped.NEG_INF).all() and (acc[dead] == 0).all()
+    assert (m - pm).abs().max().item() <= 1e-3
+    got = (acc / l.clamp(min=1e-37)[..., None]).to(torch.bfloat16)
+    want = (pacc / pl.clamp(min=1e-37)[..., None]).to(torch.bfloat16)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _bf16_tol(want), (err, _bf16_tol(want))
+
+
+def test_decode_attention_batch_gapped_kernel_arm_matches_plain_arm(cuda):
+    # the merged output of both arms at the serving shapes (bf16 output, 2
+    # bf16 steps); a free slot returns exactly the current token's value
+    rng = np.random.default_rng(7)
+    b, kv, g, s, d = 4, 2, 6, 43008, 128
+    q = _bf16(rng, (b, kv * g, d), cuda)
+    kc, vc = _bf16(rng, (b, kv, s, d), cuda), _bf16(rng, (b, kv, s, d), cuda)
+    kn, vn = _bf16(rng, (b, kv, d), cuda), _bf16(rng, (b, kv, d), cuda)
+    fl, ds = _i32([32002, 18498, 4674, 0], cuda), _i32([40960, 40976, 40992, 41024], cuda)
+    args = (q, kc, vc, fl, 40960, 64, kn, vn)
+    got = attention.decode_attention_batch_gapped(*args, dec_start=ds, impl="pallas")
+    want = attention.decode_attention_batch_gapped(*args, dec_start=ds, impl="xla")
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _bf16_tol(want), (err, _bf16_tol(want))
+    assert torch.equal(got[3], vn[3].repeat_interleave(g, dim=0))
+
+
 def test_wrappers_raise_on_bad_input(cuda):
     q = torch.zeros((12, 64, 128), dtype=torch.float32, device=cuda)
     kc = torch.zeros((2, 128, 128), dtype=torch.float32, device=cuda)
@@ -111,4 +176,13 @@ def test_wrappers_raise_on_bad_input(cuda):
         flash_prefill.flash_prefill_attention(
             q.bfloat16(), kc.bfloat16(), kc.bfloat16(), 1,
             kn.bfloat16(), kn.bfloat16(), one,
+        )
+    q4 = torch.zeros((1, 2, 6, 128), dtype=torch.bfloat16, device=cuda)
+    kc4 = torch.zeros((1, 2, 64, 128), dtype=torch.bfloat16, device=cuda)
+    fl = _i32([8], cuda)
+    with pytest.raises(TypeError):  # write_end is a host int on CUDA
+        decode_gapped.decode_gapped_flash_state(q4, kc4, kc4, fl, fl, _i32(8, cuda))
+    with pytest.raises(ValueError):  # 17 query rows per KV head exceed the mma tile
+        decode_gapped.decode_gapped_flash_state(
+            torch.zeros((1, 2, 17, 128), dtype=torch.bfloat16, device=cuda), kc4, kc4, fl, fl, 8
         )

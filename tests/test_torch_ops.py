@@ -1,6 +1,6 @@
 """Port ops against the JAX package on the CPU, fp32, inputs from a numpy
 seed: rope, chunk attention and the K1 wrapper, PivotKV and the K2 wrapper,
-DPSelect. Where the JAX function reaches a Pallas kernel it runs in
+DPSelect, gap-layout batched decode attention and the K4 wrapper. Where the JAX function reaches a Pallas kernel it runs in
 interpret mode, as the JAX package's own tests run it on the CPU; the port's
 kernel wrappers take their plain versions on CPU tensors.
 """
@@ -15,13 +15,14 @@ from retake_tpu.ops import attention as jattn
 from retake_tpu.ops import dpselect as jdp
 from retake_tpu.ops import pivotkv as jpkv
 from retake_tpu.ops import rope as jrope
+from retake_tpu.ops.pallas.decode_gapped import decode_gapped_flash_state as jgapped
 from retake_tpu.ops.pallas.flash_prefill import flash_prefill_attention as jflash
 from retake_tpu.ops.pallas.pivot_scores import pivot_score_sums as jscores
 from retake_tpu_torch.ops import attention as tattn
 from retake_tpu_torch.ops import dpselect as tdp
 from retake_tpu_torch.ops import pivotkv as tpkv
 from retake_tpu_torch.ops import rope as trope
-from retake_tpu_torch.ops.cuda import flash_prefill, pivot_scores
+from retake_tpu_torch.ops.cuda import decode_gapped, flash_prefill, pivot_scores
 from torch_parity import npy, tt
 
 
@@ -216,3 +217,118 @@ def test_local_peaks_tie_breaking_matches_jax():
     np.testing.assert_array_equal(
         npy(tdp._local_peaks(tt(dis))), np.asarray(jdp._local_peaks(jnp.asarray(dis)))
     )
+
+
+# ---------------------------------------------------------------- gapped decode / K4
+
+# the cases of tests/test_attention.py: (B, KV, G, D, S, final_len, dec_start
+# or None, gap_start, gap_filled). Case 0 has per-slot dec_start holes and a
+# free slot (final_len 0); case 1 takes dec_start = gap_start; case 2 is the
+# non-power-of-two bucket S = 384.
+GAPPED_CASES = [
+    (3, 2, 3, 8, 64, [10, 32, 0], [40, 44, 40], 40, 12),
+    (3, 2, 3, 8, 64, [10, 32, 0], None, 40, 12),
+    (2, 2, 3, 8, 384, [100, 300], [320, 336], 320, 40),
+]
+
+
+def _gapped_inputs(rng, b, kv, g, d, s, lead=()):
+    def draw(*shape):
+        return (rng.normal(size=shape) * 0.3).astype(np.float32)
+
+    return (draw(b, kv * g, d), draw(*lead, b, kv, s, d), draw(*lead, b, kv, s, d),
+            draw(b, kv, d), draw(b, kv, d))
+
+
+@pytest.mark.parametrize("case", range(len(GAPPED_CASES)))
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_decode_attention_batch_gapped_matches_jax(rng, case, impl):
+    """Both port arms (the "pallas" arm reaches the K4 wrapper, which takes
+    its plain twin on the CPU) against both JAX arms (the Pallas kernel in
+    interpret mode); fp32, atol 2e-5 as the JAX kernel-vs-einsum test."""
+    b, kv, g, d, s, fl, ds, gap_start, gap_filled = GAPPED_CASES[case]
+    q, kc, vc, kn, vn = _gapped_inputs(rng, b, kv, g, d, s)
+    fl = np.asarray(fl, np.int32)
+    jds = None if ds is None else jnp.asarray(ds, jnp.int32)
+    tds = None if ds is None else torch.tensor(ds, dtype=torch.int32)
+    got = tattn.decode_attention_batch_gapped(
+        tt(q), tt(kc), tt(vc), tt(fl), gap_start, gap_filled, tt(kn), tt(vn),
+        dec_start=tds, impl=impl,
+    )
+    for jimpl in ("xla", "pallas"):
+        want = jattn.decode_attention_batch_gapped(
+            jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(fl),
+            jnp.int32(gap_start), jnp.int32(gap_filled), jnp.asarray(kn), jnp.asarray(vn),
+            dec_start=jds, impl=jimpl,
+        )
+        np.testing.assert_allclose(npy(got), np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_decode_attention_batch_gapped_layer_index_matches_jax(rng, impl):
+    """``layer`` indexes a stacked [L, B, KV, S, D] cache: every layer
+    against the JAX stacked-mode kernel call (interpret); fp32, atol 2e-5."""
+    n_layers, b, kv, g, d, s = 3, 2, 2, 3, 8, 64
+    q, kc, vc, kn, vn = _gapped_inputs(rng, b, kv, g, d, s, lead=(n_layers,))
+    fl, ds = np.array([10, 32], np.int32), np.array([40, 44], np.int32)
+    for li in range(n_layers):
+        want = jattn.decode_attention_batch_gapped(
+            jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(fl), jnp.int32(40),
+            jnp.int32(12), jnp.asarray(kn), jnp.asarray(vn), dec_start=jnp.asarray(ds),
+            layer=jnp.int32(li), impl="pallas",
+        )
+        got = tattn.decode_attention_batch_gapped(
+            tt(q), tt(kc), tt(vc), tt(fl), 40, 12, tt(kn), tt(vn), dec_start=tt(ds),
+            layer=li, impl=impl,
+        )
+        np.testing.assert_allclose(npy(got), np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("block_k", [None, 128])
+def test_decode_gapped_flash_state_plain_matches_jax_kernel(rng, block_k):
+    """K4's plain twin against the JAX kernel's unnormalized (acc, m, l)
+    (interpret mode; fp32, atol 1e-5 on acc and l, 1e-5 on m). Slot 2 has no
+    live column. The TPU kernel only skips blocks that miss both regions, so
+    a live-looking block with no live column would leave l > 0 there; its
+    dec_start sits at S so that no block is live, and both give the empty
+    state m = -1e30, l = 0, acc = 0 (after the merge the two agree in any
+    case: the empty state's weight is exp(-1e30 - m2) = 0)."""
+    b, kv, g, d, s = 3, 2, 3, 8, 384
+    q4 = (rng.normal(size=(b, kv, g, d)) * 0.3).astype(np.float32)
+    _, kc, vc, _, _ = _gapped_inputs(rng, b, kv, g, d, s)
+    fl, ds, write_end = np.array([100, 300, 0], np.int32), np.array([320, 336, s], np.int32), 360
+    jacc, jm, jl = jgapped(jnp.asarray(q4), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(fl),
+                           jnp.asarray(ds), jnp.int32(write_end), block_k=block_k)
+    n0 = decode_gapped.decode_gapped_flash_state.launches
+    acc, m, l = decode_gapped.decode_gapped_flash_state(
+        tt(q4), tt(kc), tt(vc), tt(fl), tt(ds), write_end
+    )
+    assert decode_gapped.decode_gapped_flash_state.launches == n0  # CPU: the plain twin
+    np.testing.assert_allclose(npy(acc), np.asarray(jacc), atol=1e-5)
+    np.testing.assert_allclose(npy(m), np.asarray(jm), atol=1e-5)
+    np.testing.assert_allclose(npy(l), np.asarray(jl), atol=1e-5, rtol=1e-6)
+    assert (npy(m)[2] == decode_gapped.NEG_INF).all()
+    assert (npy(l)[2] == 0).all() and (npy(acc)[2] == 0).all()
+
+
+def test_decode_gapped_plain_empty_slot_merges_to_current_token(rng):
+    """A free slot (no live column) merges to exactly the current token's
+    value: no 0/0, whatever the buffer holds in the masked columns."""
+    b, kv, g, d, s = 2, 2, 3, 8, 64
+    q, kc, vc, kn, vn = _gapped_inputs(rng, b, kv, g, d, s)
+    vc[1] = 1e30  # slot 1's masked columns hold huge values
+    out = tattn.decode_attention_batch_gapped(
+        tt(q), tt(kc), tt(vc), torch.tensor([10, 0], dtype=torch.int32), 40, 0, tt(kn), tt(vn),
+        impl="pallas",
+    )
+    assert torch.isfinite(out).all()
+    np.testing.assert_allclose(npy(out)[1], np.repeat(vn[1], g, axis=0), atol=1e-6)
+
+
+def test_decode_attention_batch_gapped_rejects_int8_cache(rng):
+    q, kc, vc, kn, vn = _gapped_inputs(rng, 1, 2, 3, 8, 16)
+    with pytest.raises(NotImplementedError):
+        tattn.decode_attention_batch_gapped(
+            tt(q), tt(kc), tt(vc), torch.tensor([4], dtype=torch.int32), 8, 0, tt(kn), tt(vn),
+            k_scale=torch.ones(1, 2, 16), v_scale=torch.ones(1, 2, 16),
+        )
