@@ -1,22 +1,31 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-Drives retake_tpu_torch's main paths at full Qwen2-VL-2B width and depth
-(random bf16 weights from a seed): one ReTaKe request through
+Drives retake_tpu_torch's main paths at full width and depth with random
+weights from a seed. Qwen2-VL-2B in bf16: one ReTaKe request through
 ``Qwen2VLEngine.generate`` — ViT in 128-frame chunks, DPSelect keyframe
 mask, chunked prefill of 32 frames, PivotKV down to 32000 tokens with
 position reforge, YaRN x4, greedy decode — and six staggered requests
 through the continuous-batching server ``ContinuousServer.run`` (4 decode
 slots over the gap-layout cache, mid-decode admission, compaction).
+Qwen2-VL-7B in the repo's serving configuration (``quantization: w8a8``,
+``kv_cache_dtype: int8``): the same request and the same server, through
+the int8-KV modes of K1 and K4.
 
 Phases (each prints; any failure raises and exits non-zero):
-  1. device and environment        5. the same request again, bit-exact
-  2. kernel build (nvcc, sm_90a)      (tokens, first logits, KV cache)
-  3. each kernel vs its plain      6. kernel path vs plain path end to end
-     PyTorch twin at main-path        (first logits, entries PivotKV kept)
-     shapes (error + CUDA-event    7. the server: 6 requests, 4 slots, with
-     medians)                         kernel launch counts
-  4. end to end, with kernel       8. one batched decode step, kernel path
-     launch counts                    vs plain path (first-step logits)
+  1. device and environment        7. the server: 6 requests, 4 slots, with
+  2. kernel build (nvcc, sm_90a)      kernel launch counts
+  3. each kernel (and int8 mode)   8. one batched decode step, kernel path
+     vs its plain PyTorch twin at     vs plain path (first-step logits)
+     main-path shapes (error,      9. weight-only int8 2B request vs the
+     CUDA-event medians, repeat)      bf16 one (first logits)
+  4. end to end, with kernel      10. 7B W8A8 + int8-KV request: launch
+     launch counts                    counts, bit-exact repeat (cache and
+  5. the same request again,          scales), kernel vs plain path
+     bit-exact (tokens, first     11. 7B server with the int8 KV cache:
+     logits, KV cache)                6 requests, 4 slots, compaction of the
+  6. kernel path vs plain path        scale planes, K4-int8 launch counts
+     end to end (first logits,
+     entries PivotKV kept)
 
 The last two stdout lines are the kernels record and
 ``{"ok": true, "device": {...}}``; before them, the card's name and power
@@ -24,9 +33,10 @@ limit as nvidia-smi prints them.
 
 Usage:  python3 chip_smoke.py [--frames 512] [--seed 0] [--profile]
 
-``--profile`` adds one more warm request and one more batched decode step
-under torch.profiler and prints the CUDA kernels by device time and the
-device-busy share of each.
+``--frames`` sets the single request of phases 4-5 and 10 (2048 = the
+bench geometry). ``--profile`` adds one more warm request (2B and 7B) and
+one more batched decode step under torch.profiler and prints the CUDA
+kernels by device time and the device-busy share of each.
 """
 
 from __future__ import annotations
@@ -72,6 +82,9 @@ SERVE_KW = dict(batch_slots=4, segment_steps=8, max_new_tokens=32, prefill_bucke
                 gap_capacity=32)
 SERVE_REQUESTS = [(512, 0.0, None), (64, 0.0, 17), (256, 0.0, None), (128, 0.0, None),
                   (64, 1.0, None), (128, 2.0, None)]
+# 7B: the serving config of configs/qwen2_vl/retake_qwen2-vl_videomme_tpu_serving.yaml
+# on top of RETAKE_CONFIG (its eval_batch_size 4 is SERVE_KW's batch_slots)
+SERVING_7B = {"attn_implementation": "pallas", "quantization": "w8a8", "kv_cache_dtype": "int8"}
 # tolerances, kernel vs plain twin on the same bf16 inputs (N(0, 1) draws).
 # K1/K3 write bf16 outputs and round p to bf16 (K1 before normalizing, its
 # twin after): each case is held to BF16_STEPS steps of bf16 at its own
@@ -93,6 +106,20 @@ K2_TOL = 1e-4
 # the H100, so near-ties moved 1.5% of the entries; the bound allows 6x that.
 E2E_REL_LOGIT_TOL = 0.05
 E2E_MIN_KEPT_AGREEMENT = 0.9
+# the same comparison for 7B under W8A8 + int8 KV (phase 10). The plain
+# path differs from the kernel path by more than rounding: its chunk
+# attention keeps the chunk's keys bf16 and quantizes them only at the
+# cache append, as the JAX "xla" arm does. First H100 reading: rel 0.0363,
+# 96.23% of the kept entries in common; the bounds allow 3x the logit
+# difference and 3x the disagreement.
+E2E7_REL_LOGIT_TOL = 0.11
+E2E7_MIN_KEPT_AGREEMENT = 0.88
+# weight-only int8 vs bf16 on the same 2B weights and request (phase 9):
+# per-channel 8-bit weights through 28 layers. First H100 reading: rel
+# 0.0374, cosine 0.99911; the bounds allow 3x the difference and 3x the
+# distance of the cosine from 1.
+W8_REL_LOGIT_TOL = 0.12
+W8_MIN_COSINE = 0.997
 # K4 against its plain twin: the merged attention output (bf16) to
 # BF16_STEPS steps of bf16 at each case's largest output; the row max m is
 # a max of fp32 dot products, summed in another order: 1e-3 abs
@@ -309,6 +336,112 @@ def phase_kernels(dev, records):
     torch.cuda.empty_cache()
 
 
+def phase_kernels_int8(dev, records):
+    """K1-int8 and K4-int8 against their plain twins at the 7B (and 2B)
+    main-path shapes: error, bitwise repeat, CUDA-event medians."""
+    from retake_tpu_torch.ops import attention
+    from retake_tpu_torch.ops.cuda import decode_gapped, flash_prefill
+    from retake_tpu_torch.ops.quantization import quantize_kv_block
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+
+    def int8(shape):
+        return quantize_kv_block(bf16(gen, shape, dev))
+
+    # K1-int8: int8 cache and pre-quantized chunk (the decoder's single
+    # rounding site), S=2304, budget 40960; 7B heads (28 q / 4 kv) and 2B
+    # heads (12 q / 2 kv)
+    k1 = flash_prefill.flash_prefill_attention
+    s, d, budget = 2304, 128, 40960
+    worst, ms = 0.0, {}
+    for kv, g in ((4, 7), (2, 6)):
+        q = bf16(gen, (kv * g, s, d), dev)
+        (kc, kcs), (vc, vcs) = int8((kv, budget, d)), int8((kv, budget, d))
+        (kn, kns), (vn, vns) = int8((kv, s, d)), int8((kv, s, d))
+        for cache_len in (0, 20000):
+            for valid_len in (2304, 1999):
+                cl, vl = i32(cache_len), i32(valid_len)
+                args = (q, kc, vc, cl, kn, vn, vl, kcs, vcs, (kns, vns))
+                got, again = k1(*args), k1(*args)
+                want = flash_prefill.flash_prefill_attention_plain(*args)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again), "K1-int8 not bitwise repeatable")
+                err, tol = max_err(got, want), bf16_tol(want)
+                worst = max(worst, err)
+                line = (f"K1-int8 heads {kv * g}/{kv} cache_len={cache_len} valid_len={valid_len}: "
+                        f"max|out| {want.float().abs().max().item():.3e} max_abs_err {err:.3e} "
+                        f"(tol {tol:.3e})")
+                if cache_len == 20000 and valid_len == 2304:
+                    t_k = cuda_ms(lambda: k1(*args), 10)
+                    t_p = cuda_ms(lambda: flash_prefill.flash_prefill_attention_plain(*args), 3, 1)
+                    ms[kv] = (t_k, t_p)
+                    line += f" kernel {t_k:.3f} ms plain {t_p:.3f} ms"
+                log(line)
+                check(err <= tol, ("K1-int8", kv, cache_len, valid_len, err, tol))
+        del q, kc, vc, kn, vn, got, again, want
+        torch.cuda.empty_cache()
+    records["K1-int8"] = dict(
+        name="flash_prefill_attention_int8", route="cuda",
+        source="retake_tpu_torch/csrc/flash_prefill.cu",
+        replaces="retake_tpu/ops/pallas/flash_prefill.py:182",
+        max_abs_err=worst, ms=ms[4][0], plain_ms=ms[4][1],
+    )
+
+    # K4-int8 at the 7B serving shape: 4 slots, 4 KV heads, G=7, the
+    # 43008-column bucket, mixed live columns; the second case has an
+    # all-dead slot (its decode region starts at the write pointer). Cases:
+    # (final_len, dec_start or None, gap_start, gap_filled)
+    k4 = decode_gapped.decode_gapped_flash_state
+    b, kvh, g, s = 4, 4, 7, 43008
+    cases = [([32002, 18498, 4674, 20000], None, 40960, 64),
+             ([32002, 18498, 4674, 0], [40960, 40976, 40992, 41024], 40960, 64)]
+    q = bf16(gen, (b, kvh * g, d), dev)
+    (kc, ks), (vc, vs) = int8((b, kvh, s, d)), int8((b, kvh, s, d))
+    kn, vn = bf16(gen, (b, kvh, d), dev), bf16(gen, (b, kvh, d), dev)
+    q4 = q.reshape(b, kvh, g, d)
+    worst = 0.0
+    for ci, (fl, ds, gap_start, gap_filled) in enumerate(cases):
+        final_len = i32(fl)
+        dec_start = None if ds is None else i32(ds)
+        dec0 = i32([gap_start] * b) if ds is None else dec_start
+        we = gap_start + gap_filled
+        args = (q, kc, vc, final_len, gap_start, gap_filled, kn, vn, ks, vs)
+        got = attention.decode_attention_batch_gapped(*args, dec_start=dec_start, impl="pallas")
+        want = attention.decode_attention_batch_gapped(*args, dec_start=dec_start, impl="xla")
+        sargs = (q4, kc, vc, final_len, dec0, we, ks, vs)
+        state, again = k4(*sargs), k4(*sargs)
+        _, pm, pl = decode_gapped.decode_gapped_flash_state_plain(*sargs)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(state, again)), "K4-int8 not bitwise repeatable")
+        dead = pl == 0
+        check(torch.equal(dead, state[2] == 0) and bool((state[1][dead] == decode_gapped.NEG_INF).all()),
+              "K4-int8 empty state")
+        err, tol = max_err(got, want), bf16_tol(want)
+        m_err = max_err(state[1][~dead], pm[~dead])
+        worst = max(worst, err)
+        log(f"K4-int8 B={b} KV={kvh} G={g} S={s} dec_start={'per slot' if ds else 'None'}: "
+            f"max|out| {want.float().abs().max().item():.3e} max_abs_err {err:.3e} (tol {tol:.3e}), "
+            f"m err {m_err:.3e} (tol {K4_M_TOL}), dead (slot, head) rows {int(dead.sum())}")
+        check(err <= tol and m_err <= K4_M_TOL, ("K4-int8", ci, err, tol, m_err))
+        if ci == 0:
+            t_k = cuda_ms(lambda: k4(*sargs), 20)
+            t_p = cuda_ms(lambda: decode_gapped.decode_gapped_flash_state_plain(*sargs), 5)
+            live = sum(fl) + b * gap_filled
+            log(f"K4-int8 serving case: kernel {t_k:.4f} ms plain {t_p:.4f} ms; live K/V "
+                f"{live * kvh * (2 * d + 8) / 1e6:.1f} MB -> "
+                f"{live * kvh * (2 * d + 8) / t_k / 1e6:.0f} GB/s")
+    records["K4-int8"] = dict(
+        name="decode_gapped_flash_state_int8", route="cuda",
+        source="retake_tpu_torch/csrc/decode_gapped.cu",
+        replaces="retake_tpu/ops/pallas/decode_gapped.py:220",
+        max_abs_err=worst, ms=t_k, plain_ms=t_p,
+    )
+    del q, kc, vc, ks, vs, state, again, got, want
+    torch.cuda.empty_cache()
+
+
 def profile_run(fn, what: str):
     """``fn()`` under torch.profiler: kernels by device time, busy share."""
     from torch.autograd import DeviceType
@@ -352,13 +485,35 @@ def build_request(cfg, num_frames: int, dev, seed: int):
     return ids, patches, np.array([[grid_t, GRID_H, GRID_W]])
 
 
-def phase_serve(cfg, model, rt, dev, seed: int) -> dict:
-    """ContinuousServer.run over SERVE_REQUESTS with decode_attn_impl left at
-    "auto"; returns the kernels' launch counts of this run."""
+def all_kernels():
+    """Every kernel wrapper (one per mode) by its record key."""
     from retake_tpu_torch.ops.cuda import decode_gapped, flash_prefill, pivot_scores, vit_attention
+
+    return {"K1": flash_prefill.flash_prefill_attention,
+            "K1-int8": flash_prefill.flash_prefill_attention_int8,
+            "K2": pivot_scores.pivot_score_sums, "K3": vit_attention.vit_attention_qkv,
+            "K4": decode_gapped.decode_gapped_flash_state,
+            "K4-int8": decode_gapped.decode_gapped_flash_state_int8}
+
+
+def zero_counts():
+    for fn in all_kernels().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {key: fn.launches for key, fn in all_kernels().items()}
+
+
+def phase_serve(cfg, model, rt, dev, seed: int, tag: str = "7") -> dict:
+    """ContinuousServer.run over SERVE_REQUESTS with decode_attn_impl left at
+    "auto"; returns the kernels' launch counts of this run (keyed K1..K4-int8).
+    With an int8 KV cache the int8 modes of K1 and K4 must run, the bf16
+    ones not at all."""
     from retake_tpu_torch.runtime.engine import Qwen2VLEngine
     from retake_tpu_torch.runtime.serve import ContinuousServer
 
+    int8 = rt.kv_cache_dtype == "int8"
     engine = Qwen2VLEngine(cfg, model, rt, device=dev)
     server = ContinuousServer(engine, **SERVE_KW)
     check(server.decode_attn_impl == "pallas", ("decode_attn_impl auto ->", server.decode_attn_impl))
@@ -370,23 +525,20 @@ def phase_serve(cfg, model, rt, dev, seed: int) -> dict:
             req["max_new_tokens"] = own_max
         reqs.append(req)
         budgets.append(own_max or SERVE_KW["max_new_tokens"])
-    kernels = (flash_prefill.flash_prefill_attention, pivot_scores.pivot_score_sums,
-               vit_attention.vit_attention_qkv, decode_gapped.decode_gapped_flash_state)
-    for k in kernels:
-        k.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    zero_counts()
     t0 = time.perf_counter()
     results = server.run(reqs, arrival_times=[a for _, a, _ in SERVE_REQUESTS])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     st = server.stats
-    log(f"[7] served {len(results)} requests in {wall:.3f} s; stats {json.dumps(st)}")
-    log(f"[7] launches {launches}")
+    log(f"[{tag}] served {len(results)} requests in {wall:.3f} s; stats {json.dumps(st)}")
+    log(f"[{tag}] launches {launches}")
     for r, (frames, arrival, _), budget in zip(results, SERVE_REQUESTS, budgets):
-        log(f"[7]   req {r.request_id}: {frames} frames, arrival {arrival:.1f} s, prefill start "
+        log(f"[{tag}]   req {r.request_id}: {frames} frames, arrival {arrival:.1f} s, prefill start "
             f"{r.prefill_start_s:.3f} s, TTFT {r.ttft_s:.3f} s, finish {r.finish_s:.3f} s, "
             f"{len(r.tokens)}/{budget} tokens {r.tokens[:4].tolist()}")
         check(not r.cancelled and len(r.tokens) == budget, ("tokens", r.request_id, len(r.tokens)))
@@ -401,11 +553,15 @@ def phase_serve(cfg, model, rt, dev, seed: int) -> dict:
           ("mid-run admission", first_free, late.prefill_start_s))
     seg = SERVE_KW["segment_steps"]
     k4_want = cfg.num_hidden_layers * seg * st["segments_dispatched"]
-    check(launches["decode_gapped_flash_state"] == k4_want, (launches, k4_want))
-    check(all(v > 0 for v in launches.values()), launches)
+    on, off = (("K1-int8", "K2", "K3", "K4-int8"), ("K1", "K4")) if int8 else (
+        ("K1", "K2", "K3", "K4"), ("K1-int8", "K4-int8"))
+    check(launches[on[3]] == k4_want, (launches, k4_want))
+    check(all(launches[k] > 0 for k in on) and all(launches[k] == 0 for k in off), launches)
+    if int8:  # the scale planes exist and were compacted with k/v
+        check(server.ks_all is not None and server.k_all.dtype == torch.int8, "int8 planes")
     n_dec = sum(len(r.tokens) - 1 for r in results)
     ttft = sorted(r.ttft_s for r in results)
-    log(f"[7] served decode: {n_dec} tokens in {wall:.3f} s = {n_dec / wall:.2f} tok/s "
+    log(f"[{tag}] served decode: {n_dec} tokens in {wall:.3f} s = {n_dec / wall:.2f} tok/s "
         f"(whole run, prefills included); TTFT p50 {np.percentile(ttft, 50):.3f} s, p95 "
         f"{np.percentile(ttft, 95):.3f} s; peak memory {peak / 2**30:.2f} GiB")
     del server, engine, results
@@ -432,7 +588,7 @@ def phase_decode_step(cfg, model, rt, dev, seed: int, profile: bool) -> None:
     s_attn = gap_start + 2048
     firsts = [st.first_token_host for st in states]
     pos_rest = torch.tensor([st.decode_pos_base for st in states], dtype=torch.int32).to(dev)
-    k_all, v_all, base_t = assemble_gap_cache(states, s_attn)
+    k_all, v_all, base_t, _, _ = assemble_gap_cache(states, s_attn)
     final_len = torch.tensor(final_lens, dtype=torch.int32).to(dev)
     hidden = text.embed(model, torch.tensor(firsts, dtype=torch.int64).to(dev))
     logits, ms = {}, {}
@@ -459,6 +615,138 @@ def phase_decode_step(cfg, model, rt, dev, seed: int, profile: bool) -> None:
     del k_all, v_all, states, engine
 
 
+def phase_request(cfg, model, rd: dict, dev, args, tags, rel_tol, min_kept) -> dict:
+    """One ReTaKe request through ``Qwen2VLEngine.generate`` at ``--frames``
+    with launch counts (phase tags[0]); the same request warm and bit-exact
+    (tags[1]); kernel path vs plain path at 64 frames, bounded by
+    ``rel_tol`` on the first logits and ``min_kept`` on the entries PivotKV
+    kept (tags[2]). Returns the launch counts of the first run."""
+    from retake_tpu_torch.runtime.engine import Qwen2VLEngine, plan_chunks
+    from retake_tpu_torch.utils.config import RetakeConfig
+
+    t4, t5, t6 = tags
+    rt = RetakeConfig.from_dict(rd)
+    int8 = rt.kv_cache_dtype == "int8"
+    engine = Qwen2VLEngine(cfg, model, rt, device=dev)
+    ids, patches, grid = build_request(cfg, args.frames, dev, args.seed)
+    chunk_tokens = engine.get_chunk_tokens(grid[0])
+    ratio = rt.compression_ratio_for(len(ids))
+    plan, final_len, _ = plan_chunks(ids, cfg.video_token_id, chunk_tokens, ratio, ratio < 1.0)
+    n_video_chunks = sum(p["kind"] == "video" for p in plan)
+    n_vit_chunks = -(-int(grid[0][0]) // rt.frame_chunk_size)
+    log(f"[{t4}] request: {args.frames} frames, grid {grid[0].tolist()}, {len(ids)} tokens, "
+        f"ratio {ratio:.4f}, {len(plan)} prefill steps ({n_video_chunks} video chunks), "
+        f"planned cache {final_len}; quantization {rt.quantization}, kv cache "
+        f"{rt.kv_cache_dtype or 'bf16'}, W8A8 linears {engine.act_quant and model.int8}")
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res = engine.generate(ids, patches, grid, max_new_tokens=MAX_NEW_TOKENS)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    toks = res.tokens
+    log(f"[{t4}] tokens {toks.tolist()}")
+    log(f"[{t4}] launches {launches}")
+    k1, k1_off = ("K1-int8", "K1") if int8 else ("K1", "K1-int8")
+    check(len(toks) >= 1 and ((toks >= 0) & (toks < cfg.vocab_size)).all(), toks)
+    check(res.cache_fill == res.cache_len == final_len, (res.cache_fill, res.cache_len, final_len))
+    check(res.cache.quantized == int8, "KV cache dtype")
+    check(launches["K3"] >= cfg.vision.depth * n_vit_chunks, launches)
+    check(launches[k1] >= cfg.num_hidden_layers * len(plan) and launches[k1_off] == 0, launches)
+    check(launches["K2"] >= cfg.num_hidden_layers * n_video_chunks, launches)
+    check(launches["K4"] == launches["K4-int8"] == 0, launches)  # sequential decode: no K4
+    check(np.isfinite(res.first_logits).all(), "non-finite first-token logits")
+    dec_ms = 1e3 * res.decode_seconds / max(len(toks) - 1, 1)
+    log(f"[{t4}] cold: TTFT {res.prefill_seconds:.3f} s, decode {dec_ms:.2f} ms/token over "
+        f"{len(toks) - 1} tokens, peak memory {peak / 2**30:.2f} GiB")
+
+    # determinism (warm run, with per-stage timing): the whole request is
+    # bit-exact, K2's fixed-order sums included, so PivotKV keeps the same
+    # entries and the cache (int8 values and scales) and the first-token
+    # logits repeat exactly
+    os.environ["RETAKE_PROFILE"] = "1"
+    res2 = engine.generate(ids, patches, grid, max_new_tokens=MAX_NEW_TOKENS)
+    os.environ.pop("RETAKE_PROFILE")
+    n = int(res.cache.length)
+    fields = ("k", "v", "pos") + (("k_scale", "v_scale") if int8 else ())
+    same = {
+        "tokens": np.array_equal(res2.tokens, toks),
+        "first_logits": np.array_equal(res2.first_logits, res.first_logits),
+        "cache_length": n == int(res2.cache.length),
+        **{f"cache_{f}": torch.equal(getattr(res.cache, f)[:, :, :n], getattr(res2.cache, f)[:, :, :n])
+           for f in fields},
+    }
+    log(f"[{t5}] bit-exact repeat: {same}")
+    check(all(same.values()), same)
+    dec_ms2 = 1e3 * res2.decode_seconds / max(len(res2.tokens) - 1, 1)
+    log(f"[{t5}] warm (stage fences on): TTFT {res2.prefill_seconds:.3f} s, "
+        f"decode {dec_ms2:.2f} ms/token, stages "
+        + json.dumps({k: round(v, 4) for k, v in (res2.stages or {}).items()}))
+    del res, res2
+    if args.profile:
+        profile_run(lambda: engine.generate(ids, patches, grid, max_new_tokens=MAX_NEW_TOKENS),
+                    f"request ({cfg.hidden_size} wide)")
+    del engine, patches
+    torch.cuda.empty_cache()
+
+    # kernel path vs plain path, 64 frames, PivotKV compressing every video
+    # chunk (max_input_length below the 64-frame input)
+    ids6, patches6, grid6 = build_request(cfg, 64, dev, args.seed + 1)
+    rd6 = json.loads(json.dumps(rd))
+    rd6["longvideo_kwargs"]["kvcache_compression_kwargs"]["max_input_length"] = 3000
+    out = {}
+    for impl in ("pallas", "xla"):
+        rd6["attn_implementation"] = impl
+        eng = Qwen2VLEngine(cfg, model, RetakeConfig.from_dict(rd6), device=dev)
+        out[impl] = eng.generate(ids6, patches6, grid6, max_new_tokens=MAX_NEW_TOKENS)
+    a, b = out["pallas"], out["xla"]
+    diff = float(np.abs(a.first_logits - b.first_logits).max())
+    rel = diff / float(np.abs(b.first_logits).max())
+    check(a.cache_fill == b.cache_fill, (a.cache_fill, b.cache_fill))
+    kept = kept_agreement(a.cache, b.cache, a.cache_fill)
+    log(f"[{t6}] 64 frames, {len(ids6)} tokens, cache {a.cache_fill}: first-token logits "
+        f"max|diff| {diff:.4e} (rel {rel:.4f}, bound {rel_tol}); kept entries "
+        f"in common {kept:.4f} (bound {min_kept}); tokens "
+        f"{a.tokens[:4].tolist()} / {b.tokens[:4].tolist()}")
+    check(rel <= rel_tol and kept >= min_kept, (rel, kept))
+    del out, a, b, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_weight_only(cfg, model, dev, seed: int) -> None:
+    """The 2B weights quantized on the device (``quantize_llm_int8``) under
+    ``quantization: int8``: a 64-frame request's first logits against the
+    bf16 model's on the same weights and request."""
+    from retake_tpu_torch.models.qwen2_vl import params as params_lib
+    from retake_tpu_torch.models.qwen2_vl.model import Qwen2VLModel
+    from retake_tpu_torch.ops.quantization import quantize_llm_int8
+    from retake_tpu_torch.runtime.engine import Qwen2VLEngine
+    from retake_tpu_torch.utils.config import RetakeConfig
+
+    qmodel = Qwen2VLModel(cfg, quantize_llm_int8(params_lib.init_params(cfg, seed=seed, device=dev)))
+    check(torch.equal(qmodel.visual.patch_embed.w, model.visual.patch_embed.w), "same weights")
+    ids, patches, grid = build_request(cfg, 64, dev, seed + 2)
+    out = {}
+    for name, m, extra in (("bf16", model, {}), ("int8", qmodel, {"quantization": "int8"})):
+        eng = Qwen2VLEngine(cfg, m, RetakeConfig.from_dict(dict(RETAKE_CONFIG, **extra)), device=dev)
+        out[name] = eng.generate(ids, patches, grid, max_new_tokens=MAX_NEW_TOKENS)
+    a, b = out["int8"].first_logits, out["bf16"].first_logits
+    rel = float(np.abs(a - b).max() / np.abs(b).max())
+    cos = float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)))
+    w8_gb = sum(p.numel() * p.element_size() for p in qmodel.parameters()) / 1e9
+    bf_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    dec = {k: 1e3 * r.decode_seconds / max(len(r.tokens) - 1, 1) for k, r in out.items()}
+    log(f"[9] weight-only int8 vs bf16 (2B, 64 frames): first logits rel max|diff| {rel:.4f} "
+        f"(bound {W8_REL_LOGIT_TOL}), cosine {cos:.5f} (bound {W8_MIN_COSINE}); weights "
+        f"{w8_gb:.2f} vs {bf_gb:.2f} GB; decode ms/token int8 {dec['int8']:.2f} bf16 "
+        f"{dec['bf16']:.2f}; tokens {out['int8'].tokens[:4].tolist()} / "
+        f"{out['bf16'].tokens[:4].tolist()}")
+    check(np.isfinite(a).all() and rel <= W8_REL_LOGIT_TOL and cos >= W8_MIN_COSINE, (rel, cos))
+    del qmodel, out
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=512, help="raw video frames (2048 = bench)")
@@ -473,12 +761,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from retake_tpu_torch.models.qwen2_vl import params as params_lib
-    from retake_tpu_torch.models.qwen2_vl.config import qwen2_vl_2b
+    from retake_tpu_torch.models.qwen2_vl.config import qwen2_vl_2b, qwen2_vl_7b
     from retake_tpu_torch.models.qwen2_vl.model import Qwen2VLModel
-    from retake_tpu_torch.ops.cuda import (
-        _build, decode_gapped, flash_prefill, pivot_scores, vit_attention,
-    )
-    from retake_tpu_torch.runtime.engine import Qwen2VLEngine, plan_chunks
+    from retake_tpu_torch.ops.cuda import _build
     from retake_tpu_torch.utils.config import RetakeConfig
 
     dev = torch.device("cuda")
@@ -500,96 +785,18 @@ def main() -> int:
     # 3. kernels vs plain twins
     records = {}
     phase_kernels(dev, records)
+    phase_kernels_int8(dev, records)
     log("[3] kernels match their plain versions")
 
-    # 4. end to end
+    # 4-6. 2B in bf16: one request, its repeat, kernel vs plain path
     cfg = qwen2_vl_2b()
     t0 = time.perf_counter()
     model = Qwen2VLModel(cfg, params_lib.init_params(cfg, seed=args.seed, device=dev))
     torch.cuda.synchronize()
     log(f"[4] 2B model built in {time.perf_counter() - t0:.1f} s")
     rt = RetakeConfig.from_dict(RETAKE_CONFIG)
-    engine = Qwen2VLEngine(cfg, model, rt, device=dev)
-    ids, patches, grid = build_request(cfg, args.frames, dev, args.seed)
-    chunk_tokens = engine.get_chunk_tokens(grid[0])
-    ratio = rt.compression_ratio_for(len(ids))
-    plan, final_len, _ = plan_chunks(ids, cfg.video_token_id, chunk_tokens, ratio, ratio < 1.0)
-    n_video_chunks = sum(p["kind"] == "video" for p in plan)
-    n_vit_chunks = -(-int(grid[0][0]) // rt.frame_chunk_size)
-    log(f"[4] request: {args.frames} frames, grid {grid[0].tolist()}, {len(ids)} tokens, "
-        f"ratio {ratio:.4f}, {len(plan)} prefill steps ({n_video_chunks} video chunks), "
-        f"planned cache {final_len}")
-
-    kernels = (flash_prefill.flash_prefill_attention, pivot_scores.pivot_score_sums,
-               vit_attention.vit_attention_qkv)
-    for k in kernels:
-        k.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    res = engine.generate(ids, patches, grid, max_new_tokens=MAX_NEW_TOKENS)
-    launches = {k.__name__: k.launches for k in kernels}
-    peak = torch.cuda.max_memory_allocated()
-    toks = res.tokens
-    log(f"[4] tokens {toks.tolist()}")
-    log(f"[4] launches {launches}")
-    check(len(toks) >= 1 and ((toks >= 0) & (toks < cfg.vocab_size)).all(), toks)
-    check(res.cache_fill == res.cache_len == final_len, (res.cache_fill, res.cache_len, final_len))
-    check(launches["vit_attention_qkv"] >= cfg.vision.depth * n_vit_chunks, launches)
-    check(launches["flash_prefill_attention"] >= cfg.num_hidden_layers * len(plan), launches)
-    check(launches["pivot_score_sums"] >= cfg.num_hidden_layers * n_video_chunks, launches)
-    check(np.isfinite(res.first_logits).all(), "non-finite first-token logits")
-    dec_ms = 1e3 * res.decode_seconds / max(len(toks) - 1, 1)
-    log(f"[4] cold: TTFT {res.prefill_seconds:.3f} s, decode {dec_ms:.2f} ms/token over "
-        f"{len(toks) - 1} tokens, peak memory {peak / 2**30:.2f} GiB")
-
-    # 5. determinism (warm run, with per-stage timing): the whole request is
-    # bit-exact, K2's fixed-order sums included, so PivotKV keeps the same
-    # entries and the cache and the first-token logits repeat exactly
-    os.environ["RETAKE_PROFILE"] = "1"
-    res2 = engine.generate(ids, patches, grid, max_new_tokens=MAX_NEW_TOKENS)
-    os.environ.pop("RETAKE_PROFILE")
-    n = int(res.cache.length)
-    same = {
-        "tokens": np.array_equal(res2.tokens, toks),
-        "first_logits": np.array_equal(res2.first_logits, res.first_logits),
-        "cache_length": n == int(res2.cache.length),
-        **{f"cache_{f}": torch.equal(getattr(res.cache, f)[:, :, :n], getattr(res2.cache, f)[:, :, :n])
-           for f in ("k", "v", "pos")},
-    }
-    log(f"[5] bit-exact repeat: {same}")
-    check(all(same.values()), same)
-    dec_ms2 = 1e3 * res2.decode_seconds / max(len(res2.tokens) - 1, 1)
-    log(f"[5] warm (stage fences on): TTFT {res2.prefill_seconds:.3f} s, "
-        f"decode {dec_ms2:.2f} ms/token, stages "
-        + json.dumps({k: round(v, 4) for k, v in (res2.stages or {}).items()}))
-    del res, res2
-    if args.profile:
-        profile_run(lambda: engine.generate(ids, patches, grid, max_new_tokens=MAX_NEW_TOKENS),
-                    "request")
-    del engine, patches
-    torch.cuda.empty_cache()
-
-    # 6. kernel path vs plain path, 64 frames, PivotKV compressing every
-    # video chunk (max_input_length below the 64-frame input)
-    ids6, patches6, grid6 = build_request(cfg, 64, dev, args.seed + 1)
-    rd = json.loads(json.dumps(RETAKE_CONFIG))
-    rd["longvideo_kwargs"]["kvcache_compression_kwargs"]["max_input_length"] = 3000
-    out = {}
-    for impl in ("pallas", "xla"):
-        rd["attn_implementation"] = impl
-        eng = Qwen2VLEngine(cfg, model, RetakeConfig.from_dict(rd), device=dev)
-        out[impl] = eng.generate(ids6, patches6, grid6, max_new_tokens=MAX_NEW_TOKENS)
-    a, b = out["pallas"], out["xla"]
-    diff = float(np.abs(a.first_logits - b.first_logits).max())
-    rel = diff / float(np.abs(b.first_logits).max())
-    check(a.cache_fill == b.cache_fill, (a.cache_fill, b.cache_fill))
-    kept = kept_agreement(a.cache, b.cache, a.cache_fill)
-    log(f"[6] 64 frames, {len(ids6)} tokens, cache {a.cache_fill}: first-token logits "
-        f"max|diff| {diff:.4e} (rel {rel:.4f}, bound {E2E_REL_LOGIT_TOL}); kept entries "
-        f"in common {kept:.4f} (bound {E2E_MIN_KEPT_AGREEMENT}); tokens "
-        f"{a.tokens[:4].tolist()} / {b.tokens[:4].tolist()}")
-    check(rel <= E2E_REL_LOGIT_TOL and kept >= E2E_MIN_KEPT_AGREEMENT, (rel, kept))
-    del out, a, b, eng
-    torch.cuda.empty_cache()
+    launches = phase_request(cfg, model, RETAKE_CONFIG, dev, args, ("4", "5", "6"),
+                             E2E_REL_LOGIT_TOL, E2E_MIN_KEPT_AGREEMENT)
 
     # 7. the continuous-batching server: six staggered requests, 4 slots
     serve_launches = phase_serve(cfg, model, rt, dev, args.seed)
@@ -598,12 +805,38 @@ def main() -> int:
     # 8. one batched decode step over three real prefills, kernel vs plain
     phase_decode_step(cfg, model, rt, dev, args.seed, args.profile)
 
-    kernel_line = {"kernels": []}
-    for key, fn in zip(("K1", "K2", "K3", "K4"), kernels + (decode_gapped.decode_gapped_flash_state,)):
-        rec = dict(records[key])
-        # K1-K3: the single-request run of phase 4; K4: the server of phase 7
-        rec["launches"] = launches[fn.__name__] if key != "K4" else serve_launches[fn.__name__]
-        kernel_line["kernels"].append(rec)
+    # 9. weight-only int8 against bf16 on the same 2B weights
+    phase_weight_only(cfg, model, dev, args.seed)
+    del model
+    torch.cuda.empty_cache()
+
+    # 10-11. 7B at full width and depth in the serving configuration: W8A8
+    # linears and the int8 KV cache. init_params quantizes on the device,
+    # stack by stack as it draws (quantize_llm_int8 / quantize_vit_int8's
+    # quantizers), so the bf16 7B tree never exists whole
+    cfg7 = qwen2_vl_7b()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model7 = Qwen2VLModel(cfg7, params_lib.init_params(
+        cfg7, seed=args.seed, device=dev, quantize_int8=True, quantize_vit_int8=True))
+    torch.cuda.synchronize()
+    weight_gb = sum(p.numel() * p.element_size() for p in model7.parameters()) / 1e9
+    log(f"[10] 7B model built (int8 LLM and ViT linears) in {time.perf_counter() - t0:.1f} s: "
+        f"{weight_gb:.2f} GB of weights, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    rd7 = dict(RETAKE_CONFIG, **SERVING_7B)
+    launches7 = phase_request(cfg7, model7, rd7, dev, args, ("10", "10", "10"),
+                              E2E7_REL_LOGIT_TOL, E2E7_MIN_KEPT_AGREEMENT)
+    serve7 = phase_serve(cfg7, model7, RetakeConfig.from_dict(rd7), dev, args.seed, tag="11")
+
+    # the kernels line: K1-K3 from the 2B request (phase 4), K4 from the 2B
+    # server (phase 7), K1-int8 from the 7B request (phase 10), K4-int8 from
+    # the 7B server (phase 11)
+    source = {"K1": launches, "K2": launches, "K3": launches, "K4": serve_launches,
+              "K1-int8": launches7, "K4-int8": serve7}
+    kernel_line = {"kernels": [
+        dict(records[key], launches=source[key][key])
+        for key in ("K1", "K1-int8", "K2", "K3", "K4", "K4-int8")
+    ]}
     log(smi)
     print(json.dumps(kernel_line))
     print(json.dumps({"ok": True, "device": {

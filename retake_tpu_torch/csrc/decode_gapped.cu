@@ -1,4 +1,5 @@
-// K4: batched single-token decode attention over the gap-layout cache, bf16.
+// K4: batched single-token decode attention over the gap-layout cache, with
+// a bf16 mode and an int8-KV mode.
 //
 // Replaces the TPU kernel retake_tpu/ops/pallas/decode_gapped.py
 // (decode_gapped_flash_state / _kernel). For each slot b, KV head k and
@@ -10,29 +11,41 @@
 // (ops/attention.py decode_attention_batch_gapped). A slot with no live
 // column gives m = -1e30, l = 0, acc = 0.
 //
+// int8-KV mode (the TPU kernel's quantized mode, decode_gapped.py:183-214):
+// K/V are int8 with one fp32 scale per key column, and the scales are
+// commuted as there: int8 -> bf16 without the scale (exact, |x| <= 127),
+// s = (q.k) / sqrt(D) * ks, THEN the validity mask (a masked column with a
+// zero scale must not become a live 0 logit), l sums the unscaled p, and
+// p * vs is rounded to bf16 for the product with V.
+//
 // What bounds it on the H100: device-memory bandwidth. One query token per
 // slot reads every live K/V byte once (2 * 2 * D bytes per column and KV
-// head) for 4 * G * D flops per column: far below the tensor cores' ridge.
-// At serving shapes B * KV is 8, so one CTA per (slot, head) would use 8 of
-// the 132 SMs. The design (flash-decoding):
+// head in bf16, 2 * D + 8 in int8) for 4 * G * D flops per column: far below
+// the tensor cores' ridge. At serving shapes B * KV is 8-16, so one CTA per
+// (slot, head) would use 8-16 of the 132 SMs. The design (flash-decoding):
 //  * launch 1: one CTA per (slot, KV head, SPLIT-column range). A split that
 //    misses both live regions reads final_len / dec_start / write_end from
 //    device memory and exits at once (the TPU kernel's per-slot dead-block
 //    skipping); inside a live split, 64-column tiles that miss both regions
 //    are never loaded;
-//  * K/V tiles stream through a two-stage cp.async ring in shared memory;
-//    masked columns of a live tile are zero-filled by the copy itself, so
-//    whatever the buffer holds there never reaches the sums (no 0 x NaN);
+//  * K/V tiles (and in int8 mode the scale rows) stream through a two-stage
+//    cp.async ring in shared memory; masked columns of a live tile are
+//    zero-filled by the copy itself, scales included, so whatever the
+//    buffer holds there never reaches the sums (no 0 x NaN);
 //  * the G query rows (padded to 16) are one mma.sync m16n8k16 A operand;
 //    each of the 4 warps owns 16 columns of every tile and keeps its own
 //    online-softmax state in registers; the 4 states merge in shared memory
-//    in warp order, and the split writes its partial (acc, m, l);
+//    in warp order, and the split writes its partial (acc, m, l). int8
+//    tiles are widened to bf16 as the fragments are read;
 //  * launch 2 combines the splits of each (slot, head) in split order: no
 //    atomics, so the result repeats bit for bit.
-// Plain twin: retake_tpu_torch/ops/cuda/decode_gapped.py
+// Plain twin (both modes): retake_tpu_torch/ops/cuda/decode_gapped.py
 // decode_gapped_flash_state_plain.
 
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "mma.cuh"
 
@@ -52,6 +65,7 @@ constexpr int WARPS = 4;     // each owns BK / WARPS = 16 columns of a tile
 constexpr int MAX_GROUP = 16;
 constexpr float NEG_INF_OUT = -1e30f;  // the JAX NEG_INF of an empty slot
 constexpr float LN2 = 0.6931471805599453f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Live {
   int final_len, dec_start, write_end;
@@ -80,6 +94,19 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool fi
                "r"(bytes));
 }
 
+// one 4-byte scale; 0: zero-fill
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool fill) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const int bytes = fill ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(bytes));
+}
+
+// two int8 values (low byte first) -> two bf16, packed; exact for |x| <= 127
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint16_t w) {
+  return pack_bf16((float)(int8_t)(w & 0xff), (float)(int8_t)(w >> 8));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -88,29 +115,49 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-template <int D>
-constexpr int smem_bytes() {
-  // two stages of K and V tiles; reused for the warps' states at the end
-  return 2 * 2 * BK * (D + 8) * (int)sizeof(bf16);
-}
+// Shared-memory layout of one ring stage: K tile, V tile ([BK][LD] each,
+// rows padded by 16 bytes: conflict-free fragment loads), and in int8 mode
+// the K and V scale rows [BK] f32.
+template <int D, bool INT8>
+struct Ring {
+  typedef std::conditional_t<INT8, int8_t, bf16> KT;
+  static constexpr int LD = D + 16 / (int)sizeof(KT);  // elements per padded row
+  static constexpr int TILE_BYTES = BK * LD * (int)sizeof(KT);
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES + (INT8 ? 2 * BK * 4 : 0);
+  static constexpr int MERGE_BYTES = (WARPS * 16 * D + 2 * WARPS * 16) * 4;
+  // two stages; reused for the warps' states at the end
+  static constexpr int SMEM = 2 * STAGE_BYTES > MERGE_BYTES ? 2 * STAGE_BYTES : MERGE_BYTES;
+};
 
-template <int D>
+template <int D, bool INT8>
 __global__ void __launch_bounds__(32 * WARPS) decode_gapped_split_kernel(
     const bf16* __restrict__ q,  // [B, KV, G, D]
-    const bf16* __restrict__ k,  // [B, KV, S, D]
-    const bf16* __restrict__ v,
+    const std::conditional_t<INT8, int8_t, bf16>* __restrict__ k,  // [B, KV, S, D]
+    const std::conditional_t<INT8, int8_t, bf16>* __restrict__ v,
+    const float* __restrict__ k_scale,  // int8: [B, KV, S]
+    const float* __restrict__ v_scale,
     const int* __restrict__ final_len, const int* __restrict__ dec_start,
     int write_end,
     float* __restrict__ part_acc,  // [B * KV, n_split, G, D]
     float* __restrict__ part_ml,   // [B * KV, n_split, 2, G] (m in log2 units, l)
-    int num_kv, int group, int S, float scale_log2) {
+    int num_kv, int group, int S, float scale_log2, float inv_sqrt_d) {
+  typedef Ring<D, INT8> R;
+  typedef typename R::KT KT;
   constexpr int KSTEPS = D / 16;
   constexpr int NB_D = D / 8;
-  constexpr int LD = D + 8;  // padded row: conflict-free fragment loads
-  constexpr int VEC = 8;     // bf16 per 16-byte copy
-  constexpr int TILE = BK * LD;
+  constexpr int LD = R::LD;
+  constexpr int CPR = D * (int)sizeof(KT) / 16;  // 16-byte copies per row
+  constexpr int VEC = 16 / (int)sizeof(KT);      // elements per copy
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* stage_base = reinterpret_cast<bf16*>(smem_raw);  // [2][K|V][BK][LD]
+  auto k_tile = [&](int stage) {
+    return reinterpret_cast<KT*>(smem_raw + stage * R::STAGE_BYTES);
+  };
+  auto v_tile = [&](int stage) {
+    return reinterpret_cast<KT*>(smem_raw + stage * R::STAGE_BYTES + R::TILE_BYTES);
+  };
+  auto ks_row = [&](int stage) {  // int8 only
+    return reinterpret_cast<float*>(smem_raw + stage * R::STAGE_BYTES + 2 * R::TILE_BYTES);
+  };
 
   const int bk = blockIdx.y;  // b * num_kv + kv head
   const int b = bk / num_kv;
@@ -134,8 +181,8 @@ __global__ void __launch_bounds__(32 * WARPS) decode_gapped_split_kernel(
     qa[kk][3] = rows[1] < group ? load_pair(qh + rows[1] * D + c + 8) : 0u;
   }
 
-  const bf16* kh = k + (size_t)bk * S * D;
-  const bf16* vh = v + (size_t)bk * S * D;
+  const KT* kh = k + (size_t)bk * S * D;
+  const KT* vh = v + (size_t)bk * S * D;
   const int n_tiles = (s1 - s0 + BK - 1) / BK;
   auto tile_live = [&](int it) {
     const int lo = s0 + it * BK;
@@ -146,16 +193,26 @@ __global__ void __launch_bounds__(32 * WARPS) decode_gapped_split_kernel(
     return it;
   };
   auto issue = [&](int it, int stage) {
-    bf16* ks = stage_base + stage * 2 * TILE;
-    bf16* vs = ks + TILE;
+    KT* ks = k_tile(stage);
+    KT* vs = v_tile(stage);
     const int base = s0 + it * BK;
-    for (int i = threadIdx.x; i < BK * (D / VEC); i += blockDim.x) {
-      const int r = i / (D / VEC), c = (i % (D / VEC)) * VEC;
+    for (int i = threadIdx.x; i < BK * CPR; i += blockDim.x) {
+      const int r = i / CPR, c = (i % CPR) * VEC;
       const int j = base + r;
       const bool fill = j < s1 && lv.col(j);
       const size_t off = fill ? (size_t)j * D + c : 0;
       cp_async16(ks + r * LD + c, kh + off, fill);
       cp_async16(vs + r * LD + c, vh + off, fill);
+    }
+    if constexpr (INT8) {
+      float* sk = ks_row(stage);
+      for (int r = threadIdx.x; r < BK; r += blockDim.x) {
+        const int j = base + r;
+        const bool fill = j < s1 && lv.col(j);
+        const size_t off = (size_t)bk * S + (fill ? j : 0);
+        cp_async4(sk + r, k_scale + off, fill);
+        cp_async4(sk + BK + r, v_scale + off, fill);
+      }
     }
   };
 
@@ -175,8 +232,9 @@ __global__ void __launch_bounds__(32 * WARPS) decode_gapped_split_kernel(
     cp_async_wait_one();
     __syncthreads();
 
-    const bf16* ks = stage_base + stage * 2 * TILE;
-    const bf16* vs = ks + TILE;
+    const KT* ks = k_tile(stage);
+    const KT* vs = v_tile(stage);
+    const float* sk = INT8 ? ks_row(stage) : nullptr;  // [K scales | V scales]
     const int col0 = warp * 16;  // this warp's 16 columns of the tile
     const int base = s0 + cur * BK + col0;
 
@@ -184,10 +242,17 @@ __global__ void __launch_bounds__(32 * WARPS) decode_gapped_split_kernel(
 #pragma unroll
     for (int nb = 0; nb < 2; ++nb) {
       sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.f;
-      const bf16* krow = ks + (col0 + nb * 8 + g) * LD + 2 * t;
+      const KT* krow = ks + (col0 + nb * 8 + g) * LD + 2 * t;
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk) {
-        uint32_t bb[2] = {load_pair(krow + kk * 16), load_pair(krow + kk * 16 + 8)};
+        uint32_t bb[2];
+        if constexpr (INT8) {
+          bb[0] = i8x2_to_bf16x2(*reinterpret_cast<const uint16_t*>(krow + kk * 16));
+          bb[1] = i8x2_to_bf16x2(*reinterpret_cast<const uint16_t*>(krow + kk * 16 + 8));
+        } else {
+          bb[0] = load_pair(krow + kk * 16);
+          bb[1] = load_pair(krow + kk * 16 + 8);
+        }
         mma_bf16_16816(sc[nb], qa[kk], bb);
       }
     }
@@ -196,8 +261,14 @@ __global__ void __launch_bounds__(32 * WARPS) decode_gapped_split_kernel(
     for (int nb = 0; nb < 2; ++nb) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int j = base + nb * 8 + 2 * t + (e & 1);
-        const float s2 = (j < s1 && lv.col(j)) ? sc[nb][e] * scale_log2 : -INFINITY;
+        const int c = nb * 8 + 2 * t + (e & 1);  // column within the warp's 16
+        const bool live = base + c < s1 && lv.col(base + c);
+        float s2;
+        if constexpr (INT8) {  // the TPU order: / sqrt(D), * ks, then the mask
+          s2 = live ? (sc[nb][e] * inv_sqrt_d) * sk[col0 + c] * LOG2E : -INFINITY;
+        } else {
+          s2 = live ? sc[nb][e] * scale_log2 : -INFINITY;
+        }
         sc[nb][e] = s2;
         mx[e >> 1] = fmaxf(mx[e >> 1], s2);
       }
@@ -223,18 +294,33 @@ __global__ void __launch_bounds__(32 * WARPS) decode_gapped_split_kernel(
       l[h] = l[h] * alpha[h] + group_sum(rs[h]);
       m[h] = mnew[h];
     }
+    if constexpr (INT8) {  // l summed the unscaled p; the product takes p * vs
+      const float* sv = sk + BK + col0 + 2 * t;
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nb][e] *= sv[nb * 8 + (e & 1)];
+      }
+    }
     // P (bf16, as the TPU kernel rounds it) @ V over the warp's 16 columns
     const uint32_t a[4] = {pack_bf16(sc[0][0], sc[0][1]), pack_bf16(sc[0][2], sc[0][3]),
                            pack_bf16(sc[1][0], sc[1][1]), pack_bf16(sc[1][2], sc[1][3])};
-    const bf16* vcol = vs + (col0 + 2 * t) * LD + g;
+    const KT* vcol = vs + (col0 + 2 * t) * LD + g;
 #pragma unroll
     for (int nd = 0; nd < NB_D; ++nd) {
       o[nd][0] *= alpha[0];
       o[nd][1] *= alpha[0];
       o[nd][2] *= alpha[1];
       o[nd][3] *= alpha[1];
-      const bf16* vp = vcol + nd * 8;
-      uint32_t bb[2] = {pack_raw(vp[0], vp[LD]), pack_raw(vp[8 * LD], vp[9 * LD])};
+      const KT* vp = vcol + nd * 8;
+      uint32_t bb[2];
+      if constexpr (INT8) {
+        bb[0] = pack_bf16((float)vp[0], (float)vp[LD]);
+        bb[1] = pack_bf16((float)vp[8 * LD], (float)vp[9 * LD]);
+      } else {
+        bb[0] = pack_raw(vp[0], vp[LD]);
+        bb[1] = pack_raw(vp[8 * LD], vp[9 * LD]);
+      }
       mma_bf16_16816(o[nd], a, bb);
     }
     __syncthreads();  // this stage is free for the tile after next
@@ -314,22 +400,56 @@ __global__ void decode_gapped_combine_kernel(
   }
 }
 
-template <int D>
-cudaError_t launch_split(dim3 grid, cudaStream_t st, const bf16* q, const bf16* k,
-                         const bf16* v, const int* fl, const int* ds, int write_end,
-                         float* pacc, float* pml, int num_kv, int group, int S,
-                         float scale_log2) {
+template <int D, bool INT8>
+cudaError_t launch_split(dim3 grid, cudaStream_t st, const void* q, const void* k,
+                         const void* v, const void* ks, const void* vs, const int* fl,
+                         const int* ds, int write_end, float* pacc, float* pml, int num_kv,
+                         int group, int S) {
+  typedef typename Ring<D, INT8>::KT KT;
+  constexpr int smem = Ring<D, INT8>::SMEM;
   static bool attr_set = false;  // > 48 KB of dynamic shared memory: opt in once
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(decode_gapped_split_kernel<D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           smem_bytes<D>());
+    cudaError_t err = cudaFuncSetAttribute(decode_gapped_split_kernel<D, INT8>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  decode_gapped_split_kernel<D><<<grid, 32 * WARPS, smem_bytes<D>(), st>>>(
-      q, k, v, fl, ds, write_end, pacc, pml, num_kv, group, S, scale_log2);
+  const float inv_sqrt_d = (float)(1.0 / sqrt((double)D));
+  const float scale_log2 = (1.0f / sqrtf((float)D)) * LOG2E;
+  decode_gapped_split_kernel<D, INT8><<<grid, 32 * WARPS, smem, st>>>(
+      (const bf16*)q, (const KT*)k, (const KT*)v, (const float*)ks, (const float*)vs, fl, ds,
+      write_end, pacc, pml, num_kv, group, S, scale_log2, inv_sqrt_d);
   return cudaGetLastError();
+}
+
+template <bool INT8>
+int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+           const void* final_len, const void* dec_start, void* part_acc, void* part_ml,
+           void* acc, void* m, void* l, int batch, int num_kv, int group, int S, int D,
+           int write_end, void* stream) {
+  if (group < 1 || group > MAX_GROUP || S < 1) return (int)cudaErrorInvalidValue;
+  const int n_split = (S + SPLIT - 1) / SPLIT;
+  const dim3 grid(n_split, batch * num_kv);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int *fl = (const int*)final_len, *ds = (const int*)dec_start;
+  cudaError_t err;
+  switch (D) {
+    case 64:
+      err = launch_split<64, INT8>(grid, st, q, k, v, ks, vs, fl, ds, write_end,
+                                   (float*)part_acc, (float*)part_ml, num_kv, group, S);
+      break;
+    case 128:
+      err = launch_split<128, INT8>(grid, st, q, k, v, ks, vs, fl, ds, write_end,
+                                    (float*)part_acc, (float*)part_ml, num_kv, group, S);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  decode_gapped_combine_kernel<<<dim3(batch * num_kv, group), D, 0, st>>>(
+      (const float*)part_acc, (const float*)part_ml, fl, ds, write_end, (float*)acc,
+      (float*)m, (float*)l, num_kv, group, S, D, n_split);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -342,29 +462,17 @@ extern "C" int retake_decode_gapped_bf16(const void* q, const void* k, const voi
                                          void* m, void* l, int batch, int num_kv,
                                          int group, int S, int D, int write_end,
                                          void* stream) {
-  if (group < 1 || group > MAX_GROUP || S < 1) return (int)cudaErrorInvalidValue;
-  const int n_split = (S + SPLIT - 1) / SPLIT;
-  const dim3 grid(n_split, batch * num_kv);
-  const float scale_log2 = (1.0f / sqrtf((float)D)) * 1.4426950408889634f;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const bf16 *qq = (const bf16*)q, *kk = (const bf16*)k, *vv = (const bf16*)v;
-  const int *fl = (const int*)final_len, *ds = (const int*)dec_start;
-  cudaError_t err;
-  switch (D) {
-    case 64:
-      err = launch_split<64>(grid, st, qq, kk, vv, fl, ds, write_end, (float*)part_acc,
-                             (float*)part_ml, num_kv, group, S, scale_log2);
-      break;
-    case 128:
-      err = launch_split<128>(grid, st, qq, kk, vv, fl, ds, write_end, (float*)part_acc,
-                              (float*)part_ml, num_kv, group, S, scale_log2);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return (int)err;
-  decode_gapped_combine_kernel<<<dim3(batch * num_kv, group), D, 0, st>>>(
-      (const float*)part_acc, (const float*)part_ml, fl, ds, write_end, (float*)acc,
-      (float*)m, (float*)l, num_kv, group, S, D, n_split);
-  return (int)cudaGetLastError();
+  return launch<false>(q, k, v, nullptr, nullptr, final_len, dec_start, part_acc, part_ml,
+                       acc, m, l, batch, num_kv, group, S, D, write_end, stream);
+}
+
+extern "C" int retake_decode_gapped_int8(const void* q, const void* k, const void* v,
+                                         const void* k_scale, const void* v_scale,
+                                         const void* final_len, const void* dec_start,
+                                         void* part_acc, void* part_ml, void* acc,
+                                         void* m, void* l, int batch, int num_kv,
+                                         int group, int S, int D, int write_end,
+                                         void* stream) {
+  return launch<true>(q, k, v, k_scale, v_scale, final_len, dec_start, part_acc, part_ml,
+                      acc, m, l, batch, num_kv, group, S, D, write_end, stream);
 }

@@ -83,3 +83,10 @@ def qwen2_vl_2b() -> Qwen2VLConfig:
         tie_word_embeddings=True,
         vision=Qwen2VisionConfig(hidden_size=1536),
     )
+
+
+def qwen2_vl_7b() -> Qwen2VLConfig:
+    """Qwen2-VL-7B geometry (the JAX default ``Qwen2VLConfig()``): 28 layers,
+    hidden 3584, intermediate 18944, 28 query / 4 KV heads of 128, vocab
+    152064, untied LM head, ViT 32 x 1280 projecting to 3584."""
+    return Qwen2VLConfig()

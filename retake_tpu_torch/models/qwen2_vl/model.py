@@ -20,8 +20,9 @@ class Qwen2VLModel(TextDecoder):
 
     @property
     def device(self):
-        return self.embed_tokens.device
+        return self.final_ln.device
 
     @property
     def dtype(self):
-        return self.embed_tokens.dtype
+        """The activation dtype: a float leaf (the embedding may be int8)."""
+        return self.final_ln.dtype

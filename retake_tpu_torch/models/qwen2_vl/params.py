@@ -10,6 +10,8 @@ input-major ``[in, out]`` and per-layer tensors are stacked ``[L, ...]``:
           merger/{ln_q, fc1, fc2}}
 
 As module parameters these keys become dotted names (``layers.q.w``).
+An int8 linear is ``{'w': int8, 'scale': f32}`` (``ops/quantization.py``),
+and so is a quantized ``embed_tokens`` (per-row scale) or ``lm_head``.
 Loading HF checkpoints is not ported yet.
 """
 
@@ -23,6 +25,7 @@ import torch
 from torch import nn
 
 from retake_tpu_torch.models.qwen2_vl.config import Qwen2VLConfig
+from retake_tpu_torch.ops import quantization as q8
 from retake_tpu_torch.ops import rope
 
 
@@ -45,11 +48,20 @@ def init_params(
     seed: int = 0,
     dtype: torch.dtype = torch.bfloat16,
     device="cpu",
+    quantize_int8: bool = False,
+    quantize_vit_int8: bool = False,
 ) -> dict:
     """Random parameter tree (tests and benchmarks at reference geometry),
     drawn on ``device`` from a ``torch.Generator`` seeded with ``seed``.
     Matrices are N(0, 1/fan_in), norms one, biases zero, the embedding
-    N(0, 0.02^2), as in the JAX init (the draws themselves differ)."""
+    N(0, 0.02^2), as in the JAX init (the draws themselves differ).
+
+    ``quantize_int8`` quantizes the decoder linears, the embedding and the
+    LM head, ``quantize_vit_int8`` the vision block and merger linears,
+    each stack right after it is drawn, on ``device``: the full bf16 tree
+    (16.6 GB at 7B) never exists, one bf16 stack at a time does. The result
+    equals ``quantize_llm_int8`` / ``quantize_vit_int8`` of the unquantized
+    tree of the same seed, leaf for leaf."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d, m, l = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
@@ -62,6 +74,14 @@ def init_params(
         x = torch.randn(shape, generator=gen, dtype=dtype, device=device)
         return x * torch.tensor(scale, dtype=dtype)
 
+    def qw(*shape):  # a decoder linear
+        x = w(*shape)
+        return q8.quantize_linear_stack(x) if quantize_int8 else {"w": x}
+
+    def vqw(*shape):  # a vision block / merger linear
+        x = w(*shape)
+        return q8.quantize_linear_stack(x) if quantize_vit_int8 else {"w": x}
+
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
@@ -70,14 +90,14 @@ def init_params(
 
     layers = {
         "input_ln": ones(l, d),
-        "q": {"w": w(l, d, h * hd), "b": zeros(l, h * hd)},
-        "k": {"w": w(l, d, kv * hd), "b": zeros(l, kv * hd)},
-        "v": {"w": w(l, d, kv * hd), "b": zeros(l, kv * hd)},
-        "o": {"w": w(l, h * hd, d)},
+        "q": {**qw(l, d, h * hd), "b": zeros(l, h * hd)},
+        "k": {**qw(l, d, kv * hd), "b": zeros(l, kv * hd)},
+        "v": {**qw(l, d, kv * hd), "b": zeros(l, kv * hd)},
+        "o": qw(l, h * hd, d),
         "post_ln": ones(l, d),
-        "gate": {"w": w(l, d, m)},
-        "up": {"w": w(l, d, m)},
-        "down": {"w": w(l, m, d)},
+        "gate": qw(l, d, m),
+        "up": qw(l, d, m),
+        "down": qw(l, m, d),
     }
     v = cfg.vision
     vd, vl, vm = v.embed_dim, v.depth, v.embed_dim * v.mlp_ratio
@@ -86,26 +106,29 @@ def init_params(
         "patch_embed": {"w": w(v.patch_input_dim, vd)},
         "blocks": {
             "ln1": {"scale": ones(vl, vd), "bias": zeros(vl, vd)},
-            "qkv": {"w": w(vl, vd, 3 * vd), "b": zeros(vl, 3 * vd)},
-            "proj": {"w": w(vl, vd, vd), "b": zeros(vl, vd)},
+            "qkv": {**vqw(vl, vd, 3 * vd), "b": zeros(vl, 3 * vd)},
+            "proj": {**vqw(vl, vd, vd), "b": zeros(vl, vd)},
             "ln2": {"scale": ones(vl, vd), "bias": zeros(vl, vd)},
-            "fc1": {"w": w(vl, vd, vm), "b": zeros(vl, vm)},
-            "fc2": {"w": w(vl, vm, vd), "b": zeros(vl, vd)},
+            "fc1": {**vqw(vl, vd, vm), "b": zeros(vl, vm)},
+            "fc2": {**vqw(vl, vm, vd), "b": zeros(vl, vd)},
         },
         "merger": {
             "ln_q": {"scale": ones(vd), "bias": zeros(vd)},
-            "fc1": {"w": w(merged, merged), "b": zeros(merged)},
-            "fc2": {"w": w(merged, v.hidden_size), "b": zeros(v.hidden_size)},
+            "fc1": {**vqw(merged, merged), "b": zeros(merged)},
+            "fc2": {**vqw(merged, v.hidden_size), "b": zeros(v.hidden_size)},
         },
     }
+    embed = w(cfg.vocab_size, d, scale=0.02)
     params = {
-        "embed_tokens": w(cfg.vocab_size, d, scale=0.02),
+        "embed_tokens": q8.quantize_embedding(embed) if quantize_int8 else embed,
         "layers": layers,
         "final_ln": ones(d),
         "visual": visual,
     }
+    del embed
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = w(d, cfg.vocab_size)
+        head = w(d, cfg.vocab_size)
+        params["lm_head"] = q8.quantize_weight(head) if quantize_int8 else head
     return params
 
 
@@ -121,13 +144,20 @@ def _leaf_to_torch(x, dtype, device) -> torch.Tensor:
 def from_jax_params(tree: dict, dtype: torch.dtype | None = None, device="cpu") -> dict:
     """The weight bridge: the JAX package's parameter pytree (leaves as
     numpy or JAX arrays) -> the port's tree of tensors, same keys and
-    layouts. ``dtype`` None keeps each leaf's dtype."""
-    return {
-        k: from_jax_params(v, dtype, device)
-        if isinstance(v, dict)
-        else _leaf_to_torch(v, dtype, device)
-        for k, v in tree.items()
-    }
+    layouts. ``dtype`` casts the floating leaves (None keeps each leaf's
+    dtype); int8 weights and the fp32 scales beside them are carried as
+    they are, as the JAX package keeps them in a bf16 model."""
+    quantized = np.asarray(tree.get("w", np.zeros(0))).dtype == np.int8
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = from_jax_params(v, dtype, device)
+            continue
+        kind = np.asarray(v).dtype
+        floating = kind.kind == "f" or kind.name == "bfloat16"
+        keep = (quantized and k == "scale") or not floating
+        out[k] = _leaf_to_torch(v, None if keep else dtype, device)
+    return out
 
 
 class ParamTree(nn.Module):
@@ -141,6 +171,15 @@ class ParamTree(nn.Module):
                 self.add_module(k, ParamTree(v))
             else:
                 self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+    def as_dict(self) -> dict:
+        """The (unstacked) parameters as a plain nested dict."""
+        out = dict(self._parameters)
+        out.update({name: m.as_dict() for name, m in self._modules.items()})
+        return out
 
     def layer(self, i: int) -> dict:
         """Views of layer ``i`` of a stacked [L, ...] tree, as a plain dict."""

@@ -6,7 +6,10 @@ in the 2x2 spatial-merge block order, so the merger is a plain reshape to
 [t*hw/4, 4*D]. Attention is K3 (``ops/cuda/vit_attention.py``) with the
 2-D rotary fused in; it reads the qkv projection output in head-major
 column order, so ``VisionTower`` reorders the qkv weight columns once, when
-it is built (the parameter ``blocks.qkv.w`` is stored head-major).
+it is built (the parameter ``blocks.qkv.w`` is stored head-major, and an
+int8 ``blocks.qkv.scale`` with it). With int8 block and merger weights
+(``quantize_vit_int8``) and ``act_quant`` the linears run W8A8
+(``ops/quantization.qlinear``); the patch embed stays a float product.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from torch import nn
 from retake_tpu_torch.models.qwen2_vl.config import Qwen2VisionConfig
 from retake_tpu_torch.models.qwen2_vl.params import ParamTree
 from retake_tpu_torch.ops.cuda import vit_attention
+from retake_tpu_torch.ops.quantization import col_major_int8, qlinear
 
 
 def vision_rotary_tables(
@@ -58,34 +62,35 @@ def _quick_gelu(x):
     return x * torch.sigmoid(1.702 * x)
 
 
-def _linear(x, p):
-    return x @ p["w"] + p["b"]
-
-
-def _block(vcfg: Qwen2VisionConfig, cos, sin, hidden, bp, attn_impl: str):
+def _block(vcfg: Qwen2VisionConfig, cos, sin, hidden, bp, attn_impl: str, act_quant=False):
     """One ViT block over [t, hw, D]; ``bp['qkv']`` is head-major."""
     t, hw, _ = hidden.shape
     nh, hd = vcfg.num_heads, vcfg.head_dim
     x = _layer_norm(hidden, bp["ln1"]["scale"], bp["ln1"]["bias"])
-    qkv = _linear(x, bp["qkv"]).reshape(t, hw, nh, 3, hd)
+    qkv = qlinear(x, bp["qkv"], act_quant).reshape(t, hw, nh, 3, hd)
     if attn_impl == "pallas":
         attn = vit_attention.vit_attention_qkv(qkv, cos, sin)
     else:
         attn = vit_attention.vit_attention_qkv_plain(qkv, cos, sin)
-    hidden = hidden + _linear(attn, bp["proj"])
+    hidden = hidden + qlinear(attn, bp["proj"], act_quant)
     x2 = _layer_norm(hidden, bp["ln2"]["scale"], bp["ln2"]["bias"])
-    return hidden + _linear(_quick_gelu(_linear(x2, bp["fc1"])), bp["fc2"])
+    mlp = _quick_gelu(qlinear(x2, bp["fc1"], act_quant))
+    return hidden + qlinear(mlp, bp["fc2"], act_quant)
 
 
 def head_major_qkv(qkv: dict, num_heads: int) -> dict:
     """Reorder stacked qkv columns [q | k | v] (each N*D) to head-major
-    [q_h | k_h | v_h] per head: w [L, d, 3*d], b [L, 3*d]."""
-    w, b = qkv["w"], qkv["b"]
+    [q_h | k_h | v_h] per head: w [L, d, 3*d], b [L, 3*d], and an int8
+    weight's per-column scale [L, 3*d] with them."""
+    w = qkv["w"]
     lyr, d, _ = w.shape
     hd = d // num_heads
-    w = w.reshape(lyr, d, 3, num_heads, hd).transpose(2, 3).reshape(lyr, d, 3 * d)
-    b = b.reshape(lyr, 3, num_heads, hd).transpose(1, 2).reshape(lyr, 3 * d)
-    return {"w": w.contiguous(), "b": b.contiguous()}
+
+    def cols(x):  # [..., 3*d] -> head-major columns
+        lead = x.shape[:-1]
+        return x.reshape(*lead, 3, num_heads, hd).transpose(-3, -2).reshape(*lead, 3 * d)
+
+    return {k: cols(x).contiguous() for k, x in qkv.items()}
 
 
 class VisionTower(nn.Module):
@@ -98,9 +103,19 @@ class VisionTower(nn.Module):
         blocks = dict(params["blocks"])
         blocks["qkv"] = head_major_qkv(blocks["qkv"], vcfg.num_heads)
         self.patch_embed = ParamTree(params["patch_embed"])
-        self.blocks = ParamTree(blocks)
-        self.merger = ParamTree(params["merger"])
+        self.blocks = ParamTree(col_major_int8(blocks))  # int8 weights: see the decoder
+        self.merger = ParamTree(col_major_int8(params["merger"]))
         self._rotary = {}
+
+    @property
+    def dtype(self):
+        """The tower's activation dtype (the patch embed stays a float leaf)."""
+        return self.patch_embed.w.dtype
+
+    @property
+    def int8(self) -> bool:
+        """Are the block and merger linears int8 (``quantize_vit_int8``)?"""
+        return "scale" in self.blocks.qkv
 
     def rotary(self, grid_h: int, grid_w: int, device) -> tuple:
         key = (grid_h, grid_w, str(device))
@@ -119,17 +134,19 @@ class VisionTower(nn.Module):
         grid_h: int,
         grid_w: int,
         attn_impl: str = "pallas",
+        act_quant: bool = False,
     ) -> torch.Tensor:
-        """LLM-space video embeddings [t * hw / merge^2, out_hidden]."""
+        """LLM-space video embeddings [t * hw / merge^2, out_hidden].
+        ``act_quant``: W8A8 block and merger linears (int8 weights)."""
         v = self.vcfg
         hw = grid_h * grid_w
         x = (pixel_patches @ self.patch_embed.w).reshape(grid_t, hw, v.embed_dim)
         cos, sin = self.rotary(grid_h, grid_w, x.device)
         for i in range(v.depth):
-            x = _block(v, cos, sin, x, self.blocks.layer(i), attn_impl)
+            x = _block(v, cos, sin, x, self.blocks.layer(i), attn_impl, act_quant)
         m2 = v.spatial_merge_size**2
-        mp = self.merger
-        x = _layer_norm(x, mp.ln_q.scale, mp.ln_q.bias)
+        mp = self.merger.as_dict()
+        x = _layer_norm(x, mp["ln_q"]["scale"], mp["ln_q"]["bias"])
         x = x.reshape(grid_t * hw // m2, m2 * v.embed_dim)
-        x = F.gelu(x @ mp.fc1.w + mp.fc1.b)
-        return x @ mp.fc2.w + mp.fc2.b
+        x = F.gelu(qlinear(x, mp["fc1"], act_quant))
+        return qlinear(x, mp["fc2"], act_quant)

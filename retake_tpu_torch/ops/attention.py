@@ -9,9 +9,16 @@ the gap-layout cache (``decode_attention_batch_gapped``) has two arms:
 ``"pallas"`` calls K4 (``ops/cuda/decode_gapped.py``) and merges the current
 token, ``"xla"`` is the masked full-bucket softmax, K4's plain twin.
 
+int8 KV cache (``k_scale`` / ``v_scale``, per key): chunk attention
+dequantizes the cache (``dequantize_cache``, as K1 does); the decode
+attentions commute the scales instead, ``(q . k_q) * s_k`` and
+``(p * s_v) . v_q``, so no dequantized cache is made (as K4 does). The
+current token's key/value stay in the activation dtype.
+
 Numerics: logits and softmax in float32; matmul inputs in the activation
 dtype with float32 accumulation (the inputs are upcast before the product,
-which is exact for bf16 values), outputs in the activation dtype.
+which is exact for bf16 values and for int8), outputs in the activation
+dtype.
 """
 
 from __future__ import annotations
@@ -69,19 +76,31 @@ def chunk_prefill_mask(
     return torch.cat([cache_part, chunk_part], dim=1)
 
 
+def dequantize_cache(cache_part: torch.Tensor, scale, dtype) -> torch.Tensor:
+    """int8 [.., S, D] with per-key scale [.., S] -> ``dtype``: the fp32
+    product rounded once (``bf16(f32(k) * s)``). No scale: unchanged."""
+    if scale is None:
+        return cache_part
+    return (cache_part.to(torch.float32) * scale[..., None]).to(dtype)
+
+
 def chunk_prefill_attention(
     query: torch.Tensor,  # [H, S, D] RoPE'd chunk queries
-    key_cache: torch.Tensor,  # [KV, budget, D]
+    key_cache: torch.Tensor,  # [KV, budget, D] (int8 with k_scale)
     value_cache: torch.Tensor,  # [KV, budget, D]
     cache_len,  # int or 0-d int tensor
     key_new: torch.Tensor,  # [KV, S, D] RoPE'd chunk keys
     value_new: torch.Tensor,  # [KV, S, D]
     valid_len,  # int or 0-d int tensor
+    k_scale=None,  # [KV, budget] f32 (int8 cache)
+    v_scale=None,
 ) -> torch.Tensor:
     """Attention for one prefill chunk: cached prefix + causal self block.
     The plain version of K1 (``ops/cuda/flash_prefill.py``)."""
     budget = key_cache.shape[1]
     s = query.shape[1]
+    key_cache = dequantize_cache(key_cache, k_scale, query.dtype)
+    value_cache = dequantize_cache(value_cache, v_scale, query.dtype)
     k = torch.cat([key_cache, key_new], dim=1)
     v = torch.cat([value_cache, value_new], dim=1)
     mask = chunk_prefill_mask(budget, s, cache_len, valid_len, query.device)
@@ -95,10 +114,13 @@ def decode_attention_appendfree(
     cache_len,  # int or 0-d int tensor — valid cached tokens
     key_new: torch.Tensor,  # [KV, 1, D] the current token's key
     value_new: torch.Tensor,
+    k_scale=None,  # [KV, budget] f32 (int8 cache)
+    v_scale=None,
 ) -> torch.Tensor:
     """Single-token attention without copying the cache: the new token's
     logit/value contribution is computed separately and merged into one
-    softmax, so the cache is read once and never concatenated."""
+    softmax, so the cache is read once and never concatenated. An int8
+    cache streams into the products with its scales commuted."""
     num_heads, _, head_dim = query.shape
     num_kv, budget, _ = key_cache.shape
     group = num_heads // num_kv
@@ -106,6 +128,8 @@ def decode_attention_appendfree(
     scale = 1.0 / torch.sqrt(torch.tensor(float(head_dim), dtype=torch.float32))
 
     logits_c = torch.matmul(q, _f32(key_cache).transpose(-1, -2)) * scale
+    if k_scale is not None:
+        logits_c = logits_c * k_scale[:, None, :]
     live = torch.arange(budget, device=query.device) < cache_len
     logits_c = torch.where(live[None, None, :], logits_c, NEG_INF)  # [KV, G, T]
     logit_s = torch.matmul(q, _f32(key_new[:, 0])[:, :, None]) * scale  # [KV, G, 1]
@@ -114,6 +138,8 @@ def decode_attention_appendfree(
     p_c = torch.exp(logits_c - m)
     p_s = torch.exp(logit_s - m)
     denom = p_c.sum(dim=-1, keepdim=True) + p_s
+    if v_scale is not None:
+        p_c = p_c * v_scale[:, None, :]
     out = (
         torch.matmul(_f32(p_c.to(query.dtype)), _f32(value_cache))
         + p_s * _f32(value_new[:, 0])[:, None, :]
@@ -130,7 +156,7 @@ def decode_attention_batch_gapped(
     gap_filled,  # int — decode tokens already written
     key_new: torch.Tensor,  # [B, KV, D] the current token's key
     value_new: torch.Tensor,  # [B, KV, D]
-    k_scale=None,
+    k_scale=None,  # [B, KV, S] f32 (int8 cache), [L, B, KV, S] with ``layer``
     v_scale=None,
     dec_start=None,  # [B] int32 per-slot decode-region start; None = gap_start
     layer=None,  # int: index the layer of a stacked cache (a free view here)
@@ -143,14 +169,19 @@ def decode_attention_batch_gapped(
     (its prefill) and ``[dec_start[b], gap_start + gap_filled)`` (its own
     decode region); the columns between are masked. The current token's
     key/value merge into the same softmax without being appended, as in
-    ``decode_attention_appendfree``. Returns [B, H, D] in the query dtype.
+    ``decode_attention_appendfree``. An int8 cache comes with its per-key
+    scales, which are commuted onto the logit and probability rows.
+    Returns [B, H, D] in the query dtype.
     """
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("the int8 KV cache is not ported to retake_tpu_torch yet")
     if impl not in ("xla", "pallas"):
         raise ValueError(f"impl must be 'xla' or 'pallas', got {impl!r}")
+    int8 = key_cache.dtype == torch.int8
+    if (k_scale is None) != (v_scale is None) or int8 != (k_scale is not None):
+        raise ValueError("an int8 cache needs k_scale and v_scale, and only an int8 cache takes them")
     if layer is not None:
         key_cache, value_cache = key_cache[layer], value_cache[layer]
+        if int8:
+            k_scale, v_scale = k_scale[layer], v_scale[layer]
     b, num_heads, head_dim = query.shape
     num_kv, s = key_cache.shape[1], key_cache.shape[2]
     group = num_heads // num_kv
@@ -162,7 +193,7 @@ def decode_attention_batch_gapped(
 
     if impl == "pallas":
         acc, m, l = decode_gapped.decode_gapped_flash_state(
-            q.contiguous(), key_cache, value_cache, final_len, dec0, write_end
+            q.contiguous(), key_cache, value_cache, final_len, dec0, write_end, k_scale, v_scale
         )
         m2 = torch.maximum(m, logit_s)
         w_acc = torch.exp(m - m2)[..., None]
@@ -172,12 +203,16 @@ def decode_attention_batch_gapped(
 
     valid = decode_gapped.live_columns(s, final_len, dec0, write_end, query.device)
     logits_c = torch.matmul(_f32(q), _f32(key_cache).transpose(-1, -2)) * scale
+    if int8:
+        logits_c = logits_c * k_scale[:, :, None, :]
     logits_c = torch.where(valid[:, None, None, :], logits_c, NEG_INF)  # [B, KV, G, S]
     logit_s = logit_s[..., None]
     m = torch.maximum(logits_c.amax(dim=-1, keepdim=True), logit_s)
     p_c = torch.exp(logits_c - m)
     p_s = torch.exp(logit_s - m)
     denom = p_c.sum(dim=-1, keepdim=True) + p_s
+    if int8:
+        p_c = p_c * v_scale[:, :, None, :]
     out = (
         torch.matmul(_f32(p_c.to(query.dtype)), _f32(value_cache))
         + p_s * _f32(value_new)[:, :, None, :]

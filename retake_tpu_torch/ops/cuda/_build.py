@@ -30,9 +30,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # exported C functions: name -> argument types (all return int cudaError_t)
 SIGNATURES = {
     "retake_flash_prefill_bf16": [_P] * 8 + [_I] * 5 + [_P],
+    "retake_flash_prefill_int8": [_P] * 12 + [_I] * 5 + [_P],
     "retake_pivot_scores_bf16": [_P] * 5 + [_I] * 4 + [_P],
     "retake_vit_attention_bf16": [_P] * 4 + [_I] * 4 + [_P],
     "retake_decode_gapped_bf16": [_P] * 10 + [_I] * 6 + [_P],
+    "retake_decode_gapped_int8": [_P] * 12 + [_I] * 6 + [_P],
     "retake_decode_gapped_split_count": [_I],
 }
 

@@ -1,17 +1,25 @@
 """K4: batched gap-layout decode attention state (CUDA kernel ``csrc/decode_gapped.cu``).
 
 Replaces ``retake_tpu/ops/pallas/decode_gapped.py:decode_gapped_flash_state``
-(bf16 mode; the int8-KV mode is not ported yet). For each slot b, KV head
-and query row g it returns the unnormalized flash state over the slot's live
-columns ``[0, final_len[b]) u [dec_start[b], write_end)``: ``acc`` [B, KV, G,
-D], ``m`` and ``l`` [B, KV, G], all fp32. A slot with no live column gives
-m = -1e30, l = 0, acc = 0. ``ops.attention.decode_attention_batch_gapped``
-merges the current token and normalizes.
+in both its modes. For each slot b, KV head and query row g it returns the
+unnormalized flash state over the slot's live columns ``[0, final_len[b]) u
+[dec_start[b], write_end)``: ``acc`` [B, KV, G, D], ``m`` and ``l`` [B, KV,
+G], all fp32. A slot with no live column gives m = -1e30, l = 0, acc = 0.
+``ops.attention.decode_attention_batch_gapped`` merges the current token
+and normalizes.
+
+int8-KV mode (``k_scale`` / ``v_scale`` [B, KV, S] f32 given, K/V int8):
+the scales are commuted as in the TPU kernel: int8 -> bf16 without the
+scale (exact), logits ``(q . k) / sqrt(d) * ks`` and only then the mask,
+``l`` sums the unscaled p, and ``p * vs`` is rounded to bf16 for the
+product with V. This mode launches ``decode_gapped_flash_state_int8`` and
+counts there.
 
 The TPU kernel's block rules (``_pick_block_k``, ROWS padding, the dense
-grid's divisor search) are not carried over: the CUDA kernel takes any S and
-masks its own tail tile. The serving loop hands it the contiguous view
-``k_all[layer]``, so there is no stacked-cache mode either.
+grid's divisor search, the int8 scale-plane row alignment) are not carried
+over: the CUDA kernel takes any S and masks its own tail tile. The serving
+loop hands it the contiguous view ``k_all[layer]``, so there is no
+stacked-cache mode either.
 
 On CUDA, ``final_len`` and ``dec_start`` are int32 device tensors [B] that
 the kernel reads itself, and ``write_end`` is a host int (the server's write
@@ -38,45 +46,37 @@ def live_columns(s: int, final_len, dec_start, write_end, device) -> torch.Tenso
 
 def decode_gapped_flash_state_plain(
     query: torch.Tensor,  # [B, KV, G, D]
-    key_cache: torch.Tensor,  # [B, KV, S, D]
+    key_cache: torch.Tensor,  # [B, KV, S, D] (int8 with k_scale)
     value_cache: torch.Tensor,
     final_len: torch.Tensor,  # [B] int
     dec_start: torch.Tensor,  # [B] int
     write_end,  # int or 0-d int tensor
+    k_scale=None,  # [B, KV, S] f32
+    v_scale=None,
 ):
     """Plain version of K4: the same unnormalized state from an fp32 masked
-    softmax over the whole bucket. p is rounded to the query dtype before
-    the product with V, as the TPU kernel and the CUDA kernel round it."""
+    softmax over the whole bucket. p (times the value scale in int8 mode) is
+    rounded to the query dtype before the product with V, as the TPU kernel
+    and the CUDA kernel round it."""
     d = query.shape[-1]
     q = query.to(torch.float32)
     logits = torch.matmul(q, key_cache.to(torch.float32).transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    if k_scale is not None:
+        logits = logits * k_scale[:, :, None, :]
     valid = live_columns(key_cache.shape[2], final_len, dec_start, write_end, query.device)
     valid = valid[:, None, None, :]
     logits = torch.where(valid, logits, NEG_INF)
     m = logits.amax(dim=-1)
     p = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
     l = p.sum(dim=-1)
+    if v_scale is not None:
+        p = p * v_scale[:, :, None, :]
     acc = torch.matmul(p.to(query.dtype).to(torch.float32), value_cache.to(torch.float32))
     return acc, m, l
 
 
-def decode_gapped_flash_state(
-    query: torch.Tensor,  # [B, KV, G, D] current-token queries (RoPE'd)
-    key_cache: torch.Tensor,  # [B, KV, S, D]
-    value_cache: torch.Tensor,
-    final_len: torch.Tensor,  # [B] int32 (device tensor on CUDA)
-    dec_start: torch.Tensor,  # [B] int32
-    write_end,  # host int on CUDA (int or 0-d tensor on CPU)
-):
-    """Unnormalized flash state (acc, m, l) over each slot's live columns."""
-    if query.device.type == "cpu":
-        return decode_gapped_flash_state_plain(
-            query, key_cache, value_cache, final_len, dec_start, write_end
-        )
-    name = "decode_gapped_flash_state"
-    _checks.on_cuda(name, query, key_cache, value_cache, final_len, dec_start)
-    _checks.dtype(name, torch.bfloat16, query, key_cache, value_cache)
-    _checks.dtype(name, torch.int32, final_len, dec_start)
+def _launch(name, fn_name, query, key_cache, value_cache, final_len, dec_start, write_end,
+            scales=()):
     b, kv, g, d = query.shape
     s = key_cache.shape[2]
     if g > MAX_GROUP or d not in (64, 128):
@@ -85,6 +85,8 @@ def decode_gapped_flash_state(
     _checks.shape(name, value_cache, (b, kv, s, d))
     _checks.shape(name, final_len, (b,))
     _checks.shape(name, dec_start, (b,))
+    for sc in scales:
+        _checks.shape(name, sc, (b, kv, s))
     if not isinstance(write_end, int):
         raise TypeError(f"{name}: write_end must be a host int on CUDA")
     lib = _build.library()
@@ -95,15 +97,61 @@ def decode_gapped_flash_state(
     acc = torch.empty((b, kv, g, d), dtype=torch.float32, device=dev)
     m = torch.empty((b, kv, g), dtype=torch.float32, device=dev)
     l = torch.empty((b, kv, g), dtype=torch.float32, device=dev)
-    rc = lib.retake_decode_gapped_bf16(
+    rc = getattr(lib, fn_name)(
         query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
+        *(sc.data_ptr() for sc in scales),
         final_len.data_ptr(), dec_start.data_ptr(), part_acc.data_ptr(),
         part_ml.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
         b, kv, g, s, d, write_end, _build.stream_of(query),
     )
     _build.check(rc, name)
-    decode_gapped_flash_state.launches += 1
     return acc, m, l
 
 
+def decode_gapped_flash_state(
+    query: torch.Tensor,  # [B, KV, G, D] current-token queries (RoPE'd)
+    key_cache: torch.Tensor,  # [B, KV, S, D] (int8 with k_scale)
+    value_cache: torch.Tensor,
+    final_len: torch.Tensor,  # [B] int32 (device tensor on CUDA)
+    dec_start: torch.Tensor,  # [B] int32
+    write_end,  # host int on CUDA (int or 0-d tensor on CPU)
+    k_scale=None,  # [B, KV, S] f32: int8-KV mode
+    v_scale=None,
+):
+    """Unnormalized flash state (acc, m, l) over each slot's live columns."""
+    if query.device.type == "cpu":
+        return decode_gapped_flash_state_plain(
+            query, key_cache, value_cache, final_len, dec_start, write_end, k_scale, v_scale
+        )
+    if k_scale is not None:
+        return decode_gapped_flash_state_int8(
+            query, key_cache, value_cache, final_len, dec_start, write_end, k_scale, v_scale
+        )
+    name = "decode_gapped_flash_state"
+    _checks.on_cuda(name, query, key_cache, value_cache, final_len, dec_start)
+    _checks.dtype(name, torch.bfloat16, query, key_cache, value_cache)
+    _checks.dtype(name, torch.int32, final_len, dec_start)
+    out = _launch(name, "retake_decode_gapped_bf16", query, key_cache, value_cache,
+                  final_len, dec_start, write_end)
+    decode_gapped_flash_state.launches += 1
+    return out
+
+
+def decode_gapped_flash_state_int8(
+    query, key_cache, value_cache, final_len, dec_start, write_end, k_scale, v_scale
+):
+    """K4's int8-KV mode on CUDA (see the module docstring)."""
+    name = "decode_gapped_flash_state_int8"
+    _checks.on_cuda(name, query, key_cache, value_cache, k_scale, v_scale, final_len, dec_start)
+    _checks.dtype(name, torch.bfloat16, query)
+    _checks.dtype(name, torch.int8, key_cache, value_cache)
+    _checks.dtype(name, torch.float32, k_scale, v_scale)
+    _checks.dtype(name, torch.int32, final_len, dec_start)
+    out = _launch(name, "retake_decode_gapped_int8", query, key_cache, value_cache,
+                  final_len, dec_start, write_end, (k_scale, v_scale))
+    decode_gapped_flash_state_int8.launches += 1
+    return out
+
+
 decode_gapped_flash_state.launches = 0
+decode_gapped_flash_state_int8.launches = 0

@@ -1,12 +1,19 @@
 """K1: chunked-prefill flash attention (CUDA kernel ``csrc/flash_prefill.cu``).
 
 Replaces ``retake_tpu/ops/pallas/flash_prefill.py:flash_prefill_attention``
-(bf16 mode; the int8-KV mode is not ported yet). Same contract as
-``ops.attention.chunk_prefill_attention``, its plain twin: queries [H, S, D]
-attend to the cache prefix ``< cache_len`` of [KV, budget, D] and causally
-to the chunk's own keys [KV, S, D] (valid ``< valid_len``, plus the
-diagonal). On CUDA, ``cache_len`` and ``valid_len`` are one-element int32
-device tensors that the kernel reads itself.
+in both its modes. Same contract as ``ops.attention.chunk_prefill_attention``:
+queries [H, S, D] attend to the cache prefix ``< cache_len`` of [KV, budget,
+D] and causally to the chunk's own keys [KV, S, D] (valid ``< valid_len``,
+plus the diagonal). On CUDA, ``cache_len`` and ``valid_len`` are
+one-element int32 device tensors that the kernel reads itself.
+
+int8-KV mode (``k_scale`` / ``v_scale`` [KV, budget] f32 given): the cache
+is int8 with per-key scales, and so is the chunk: ``new_scales`` ([KV, S],
+[KV, S]) marks ``key_new`` / ``value_new`` as already int8 (the decoder's
+single rounding site); without it the bf16 chunk is quantized here, as the
+TPU kernel does. Every key and value row is dequantized to
+``bf16(f32(x) * s)`` before the products (the TPU kernel's numerics). This
+mode launches ``flash_prefill_attention_int8`` and counts there.
 """
 
 from __future__ import annotations
@@ -15,29 +22,39 @@ import torch
 
 from retake_tpu_torch.ops import attention
 from retake_tpu_torch.ops.cuda import _build, _checks
-
-# the plain version of K1 (same masks, full materialized softmax)
-flash_prefill_attention_plain = attention.chunk_prefill_attention
+from retake_tpu_torch.ops.quantization import quantize_kv_block
 
 MAX_GROUP = 16  # query heads per KV head = warps per CTA (<= 512 threads)
 
 
-def flash_prefill_attention(
-    query: torch.Tensor,  # [H, S, D] RoPE'd chunk queries
-    key_cache: torch.Tensor,  # [KV, budget, D]
-    value_cache: torch.Tensor,
-    cache_len,  # [1]/0-d int32 device tensor (int allowed on CPU)
-    key_new: torch.Tensor,  # [KV, S, D]
-    value_new: torch.Tensor,
-    valid_len,
+def _chunk_int8(key_new, value_new, new_scales):
+    """The chunk's int8 k/v and scales (quantized here unless given)."""
+    if new_scales is not None:
+        return key_new, value_new, new_scales[0], new_scales[1]
+    kq, ks = quantize_kv_block(key_new)
+    vq, vs = quantize_kv_block(value_new)
+    return kq, vq, ks, vs
+
+
+def flash_prefill_attention_plain(
+    query, key_cache, value_cache, cache_len, key_new, value_new, valid_len,
+    k_scale=None, v_scale=None, new_scales=None,
 ) -> torch.Tensor:
-    if query.device.type == "cpu":
-        return flash_prefill_attention_plain(
-            query, key_cache, value_cache, cache_len, key_new, value_new, valid_len
-        )
-    name = "flash_prefill_attention"
+    """The plain version of K1: same masks, full materialized softmax; in
+    int8 mode the cache and the chunk dequantized as the kernel does."""
+    if k_scale is not None:
+        kq, vq, ks, vs = _chunk_int8(key_new, value_new, new_scales)
+        key_new = attention.dequantize_cache(kq, ks, query.dtype)
+        value_new = attention.dequantize_cache(vq, vs, query.dtype)
+    return attention.chunk_prefill_attention(
+        query, key_cache, value_cache, cache_len, key_new, value_new, valid_len,
+        k_scale, v_scale,
+    )
+
+
+def _check_common(name, query, key_cache, value_cache, key_new, value_new):
     _checks.on_cuda(name, query, key_cache, value_cache, key_new, value_new)
-    _checks.dtype(name, torch.bfloat16, query, key_cache, value_cache, key_new, value_new)
+    _checks.dtype(name, torch.bfloat16, query)
     h, s, d = query.shape
     kv, budget, _ = key_cache.shape
     if h % kv or h // kv > MAX_GROUP or d not in (64, 128):
@@ -45,6 +62,34 @@ def flash_prefill_attention(
     _checks.shape(name, value_cache, (kv, budget, d))
     _checks.shape(name, key_new, (kv, s, d))
     _checks.shape(name, value_new, (kv, s, d))
+    return h, s, d, kv, budget
+
+
+def flash_prefill_attention(
+    query: torch.Tensor,  # [H, S, D] RoPE'd chunk queries
+    key_cache: torch.Tensor,  # [KV, budget, D] (int8 with k_scale)
+    value_cache: torch.Tensor,
+    cache_len,  # [1]/0-d int32 device tensor (int allowed on CPU)
+    key_new: torch.Tensor,  # [KV, S, D]
+    value_new: torch.Tensor,
+    valid_len,
+    k_scale=None,  # [KV, budget] f32: int8-KV mode
+    v_scale=None,
+    new_scales=None,  # ([KV, S], [KV, S]) f32: key_new/value_new already int8
+) -> torch.Tensor:
+    if query.device.type == "cpu":
+        return flash_prefill_attention_plain(
+            query, key_cache, value_cache, cache_len, key_new, value_new, valid_len,
+            k_scale, v_scale, new_scales,
+        )
+    if k_scale is not None:
+        return flash_prefill_attention_int8(
+            query, key_cache, value_cache, cache_len, key_new, value_new, valid_len,
+            k_scale, v_scale, new_scales,
+        )
+    name = "flash_prefill_attention"
+    h, s, d, kv, budget = _check_common(name, query, key_cache, value_cache, key_new, value_new)
+    _checks.dtype(name, torch.bfloat16, key_cache, value_cache, key_new, value_new)
     cl = _checks.device_scalar(name, cache_len, query)
     vl = _checks.device_scalar(name, valid_len, query)
     out = torch.empty_like(query)
@@ -58,4 +103,34 @@ def flash_prefill_attention(
     return out
 
 
+def flash_prefill_attention_int8(
+    query, key_cache, value_cache, cache_len, key_new, value_new, valid_len,
+    k_scale, v_scale, new_scales=None,
+) -> torch.Tensor:
+    """K1's int8-KV mode on CUDA (see the module docstring)."""
+    name = "flash_prefill_attention_int8"
+    key_new, value_new, kn_scale, vn_scale = _chunk_int8(key_new, value_new, new_scales)
+    h, s, d, kv, budget = _check_common(name, query, key_cache, value_cache, key_new, value_new)
+    _checks.on_cuda(name, query, k_scale, v_scale, kn_scale, vn_scale)
+    _checks.dtype(name, torch.int8, key_cache, value_cache, key_new, value_new)
+    _checks.dtype(name, torch.float32, k_scale, v_scale, kn_scale, vn_scale)
+    _checks.shape(name, k_scale, (kv, budget))
+    _checks.shape(name, v_scale, (kv, budget))
+    _checks.shape(name, kn_scale, (kv, s))
+    _checks.shape(name, vn_scale, (kv, s))
+    cl = _checks.device_scalar(name, cache_len, query)
+    vl = _checks.device_scalar(name, valid_len, query)
+    out = torch.empty_like(query)
+    rc = _build.library().retake_flash_prefill_int8(
+        query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
+        key_new.data_ptr(), value_new.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+        kn_scale.data_ptr(), vn_scale.data_ptr(), cl.data_ptr(), vl.data_ptr(),
+        out.data_ptr(), kv, h // kv, s, budget, d, _build.stream_of(query),
+    )
+    _build.check(rc, name)
+    flash_prefill_attention_int8.launches += 1
+    return out
+
+
 flash_prefill_attention.launches = 0
+flash_prefill_attention_int8.launches = 0

@@ -25,10 +25,16 @@ _prefill_only=True)`` -> ``PrefillState``), copies the caches into one
 every slot's step-i token is written at the shared column ``gap_start + i``
 (a host int, so the append needs no device read).
 
+int8 (``RetakeConfig.quantization`` / ``kv_cache_dtype``): the engine runs
+whatever weights the model holds; int8 linears (``quantize_llm_int8`` /
+``quantize_vit_int8``) run weight-only, or W8A8 at prefill under
+``quantization: w8a8`` (decode stays weight-only). ``kv_cache_dtype: int8``
+keeps the KV cache int8 with per-key scales, in the single-request cache,
+the trimmed ``PrefillState`` cache and the gap-layout batch.
+
 Not ported yet (raise NotImplementedError): images, sampling, prompt-guided
 compression, prefix / feature reuse across questions, speculative decode,
-int8 / W8A8 quantization and the int8 KV cache, ``attn_implementation:
-flash``, tensor parallelism, MA-LLM.
+``attn_implementation: flash``, tensor parallelism, MA-LLM.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from retake_tpu_torch.models.qwen2_vl import text
 from retake_tpu_torch.models.qwen2_vl.config import Qwen2VLConfig
 from retake_tpu_torch.models.qwen2_vl.model import Qwen2VLModel
 from retake_tpu_torch.ops import dpselect
+from retake_tpu_torch.ops import quantization as q8
 from retake_tpu_torch.runtime import cache as cache_lib
 from retake_tpu_torch.utils import positions as pos_lib
 from retake_tpu_torch.utils.config import RetakeConfig
@@ -106,11 +113,16 @@ class PrefillState:
 def _trim_cache(cache: cache_lib.KVCache, need: int) -> cache_lib.KVCache:
     """Copy a prefilled cache down to its decode bucket, so the full prefill
     budget is freed (a view would keep it alive)."""
+    scales = {}
+    if cache.quantized:
+        scales = dict(k_scale=cache.k_scale[:, :, :need].clone(),
+                      v_scale=cache.v_scale[:, :, :need].clone())
     return cache_lib.KVCache(
         k=cache.k[:, :, :need].clone(),
         v=cache.v[:, :, :need].clone(),
         pos=cache.pos[:, :, :need].clone(),
         length=cache.length,
+        **scales,
     )
 
 
@@ -136,8 +148,6 @@ class Qwen2VLEngine:
         impl = retake.attn_implementation
         if impl == "flash":
             raise _not_ported("attn_implementation 'flash'")
-        if retake.quantization or retake.kv_cache_dtype:
-            raise _not_ported("int8 / W8A8 quantization and the int8 KV cache")
         if retake.do_sample:
             raise _not_ported("do_sample")
         if retake.spec_decode:
@@ -150,6 +160,8 @@ class Qwen2VLEngine:
         self.model = model
         self.retake = retake
         self.attn_impl = impl if impl in ("pallas", "xla") else "pallas"
+        # W8A8: prefill linears int8 x int8, only where the weights are int8
+        self.act_quant = retake.quantization == "w8a8"
 
     # ---------- vision ----------
 
@@ -163,10 +175,11 @@ class Qwen2VLEngine:
         """
         t, h, w = (int(x) for x in np.asarray(video_grid_thw).reshape(-1)[:3])
         fcs = self.retake.frame_chunk_size or 10**9
-        patches = torch.as_tensor(pixel_values_videos).to(self.device, self.model.dtype)
         visual = self.model.visual
+        patches = torch.as_tensor(pixel_values_videos).to(self.device, visual.dtype)
+        aq = self.act_quant and visual.int8
         if t <= fcs:
-            return visual(patches, t, h, w, self.attn_impl)
+            return visual(patches, t, h, w, self.attn_impl, aq)
         hw = h * w
         merged_per_t = hw // self.cfg.vision.spatial_merge_size**2
         out_buf = None
@@ -175,7 +188,7 @@ class Qwen2VLEngine:
             chunk = patches[i * hw : (i + tc) * hw]
             if tc < fcs:  # pad the tail to the common shape; frames are independent
                 chunk = torch.nn.functional.pad(chunk, (0, 0, 0, (fcs - tc) * hw))
-            out = visual(chunk, fcs, h, w, self.attn_impl)
+            out = visual(chunk, fcs, h, w, self.attn_impl, aq)
             if out_buf is None:
                 out_buf = torch.empty(
                     (t * merged_per_t, out.shape[-1]), dtype=out.dtype, device=out.device
@@ -325,6 +338,7 @@ class Qwen2VLEngine:
             max_new_tokens=max_new_tokens, attn_impl=self.attn_impl,
             timer=timer, t_start=t0, device=self.device,
             prefill_only=_prefill_only, on_dispatch=on_dispatch,
+            act_quant=self.act_quant and self.model.int8,
         )
 
 
@@ -384,9 +398,12 @@ def prefill_and_decode(
     device: torch.device,
     prefill_only: bool = False,
     on_dispatch=None,  # called after each plan step is enqueued (serving hook)
+    act_quant: bool = False,  # W8A8 prefill linears (int8 weights)
 ):
     """Chunked prefill over one static cache budget, then greedy decode
-    (or, with ``prefill_only``, the ``PrefillState`` for batched decode)."""
+    (or, with ``prefill_only``, the ``PrefillState`` for batched decode).
+    An int8 KV cache (``kv_cache_dtype: int8``) takes each decode token
+    quantized per key."""
     s = len(ids)
     ratio = rt.compression_ratio_for(s)
     reforge = rt.kv.pos_embed_reforge and rt.kvcache_compression
@@ -437,7 +454,7 @@ def prefill_and_decode(
 
     kv = cache_lib.init_cache(
         cfg.num_hidden_layers, cfg.num_key_value_heads, budget, cfg.head_dim,
-        dtype=embeds.dtype, device=device,
+        dtype=embeds.dtype, device=device, quantized=rt.kv_cache_dtype == "int8",
     )
 
     hidden = None
@@ -448,7 +465,7 @@ def prefill_and_decode(
                 model, cfg, kv, embeds[off : off + n], pos_dev[:, off : off + n],
                 lens_dev[i, 0], kp_dev[off : off + n], lens_dev[i, 1],
                 compress=step["kind"] == "video" and compress_video,
-                reforge=reforge, attn_impl=attn_impl,
+                reforge=reforge, attn_impl=attn_impl, act_quant=act_quant,
             )
             if on_dispatch is not None:
                 on_dispatch()
@@ -525,7 +542,8 @@ def prefill_and_decode(
 def _insert_batch_slot(buf: torch.Tensor, x: torch.Tensor, slot: int) -> None:
     """Write one request's cache ``x`` [L, KV, n, ...] into batch slot
     ``slot`` of ``buf`` [L, B, KV, S, ...] in place, zeroing the slot's
-    columns past n (the JAX version writes a zero-padded copy)."""
+    columns past n (the JAX version writes a zero-padded copy). Serves the
+    K/V buffers and the int8 scale planes [L, B, KV, S] alike."""
     n = x.shape[2]
     buf[:, slot, :, :n].copy_(x)
     buf[:, slot, :, n:].zero_()
@@ -533,33 +551,42 @@ def _insert_batch_slot(buf: torch.Tensor, x: torch.Tensor, slot: int) -> None:
 
 def assemble_gap_cache(states: List[PrefillState], s_attn: int):
     """Gather prefilled caches into ``[L, B, KV, s_attn, D]`` key / value
-    buffers (slot b = ``states[b]``, its prefill at ``[0, final_len)``) and
-    the per-layer temporal position bases [L, B] int32: the reforged
-    position after the slot's last cached token, or the request's decode
-    position. Consumes each state's cache (``st.cache`` becomes None)."""
+    buffers (slot b = ``states[b]``, its prefill at ``[0, final_len)``), the
+    per-layer temporal position bases [L, B] int32 (the reforged position
+    after the slot's last cached token, or the request's decode position)
+    and, for int8 caches, the scale planes [L, B, KV, s_attn] (else None):
+    ``(k_all, v_all, base_t, ks_all, vs_all)``. Consumes each state's cache
+    (``st.cache`` becomes None)."""
     c0 = states[0].cache
     n_layers, kv, _, d = c0.k.shape
     dev = c0.k.device
     k_all = torch.zeros((n_layers, len(states), kv, s_attn, d), dtype=c0.k.dtype, device=dev)
     v_all = torch.zeros_like(k_all)
+    ks_all = vs_all = None
+    if c0.quantized:
+        ks_all = torch.zeros(k_all.shape[:4], dtype=torch.float32, device=dev)
+        vs_all = torch.zeros_like(ks_all)
     bases = []
     for b, st in enumerate(states):
         c = st.cache
         n = min(c.k.shape[2], s_attn)
         _insert_batch_slot(k_all, c.k[:, :, :n], b)
         _insert_batch_slot(v_all, c.v[:, :, :n], b)
+        if c0.quantized:
+            _insert_batch_slot(ks_all, c.k_scale[:, :, :n], b)
+            _insert_batch_slot(vs_all, c.v_scale[:, :, :n], b)
         if st.reforge:  # per-layer continuation after eviction (reference qwen2_vl.py:67-73)
             bases.append(c.pos[:, 0, st.final_len - 1] + 1)
         else:
             bases.append(torch.full((n_layers,), st.decode_pos_base, dtype=torch.int32, device=dev))
         st.cache = None
-    return k_all, v_all, torch.stack(bases, dim=1).to(torch.int32)
+    return k_all, v_all, torch.stack(bases, dim=1).to(torch.int32), ks_all, vs_all
 
 
 def _decode_loop_batch(
     model: Qwen2VLModel,
     cfg: Qwen2VLConfig,
-    k_all: torch.Tensor,  # [L, B, KV, S, D], written in place
+    k_all: torch.Tensor,  # [L, B, KV, S, D], written in place (int8 with ks_all)
     v_all: torch.Tensor,
     base_t: torch.Tensor,  # [L, B] int32
     pos_bases: torch.Tensor,  # [B] int32
@@ -574,13 +601,16 @@ def _decode_loop_batch(
     attn_impl: str = "xla",  # "pallas": K4; "xla": full-bucket masked softmax
     early_stop: bool = False,  # stop once every slot is done (checked one step late)
     max_steps=None,  # [B] int32 per-slot output budget (max_new_tokens - 1)
+    ks_all=None,  # [L, B, KV, S] f32 scale planes of an int8 cache, written in place
+    vs_all=None,
 ) -> torch.Tensor:
     """Greedy batched decode: ``num_steps`` steps for all B slots; returns
     the tokens [num_steps, B] (int64, on the device). Step i's K/V land at
-    the shared column ``gap_start + i``. A slot that is done emits EOS. With
-    ``early_stop`` the host reads ``all(done)`` of the previous step while
-    the current one is queued, so at most one step more than needed runs;
-    the skipped rows stay EOS, as in the JAX while-loop."""
+    the shared column ``gap_start + i`` (quantized per key into an int8
+    cache, their scales into the scale planes). A slot that is done emits
+    EOS. With ``early_stop`` the host reads ``all(done)`` of the previous
+    step while the current one is queued, so at most one step more than
+    needed runs; the skipped rows stay EOS, as in the JAX while-loop."""
     if sampling is not None:
         raise _not_ported("sampling in batched decode")
     eos = cfg.eos_token_id
@@ -593,12 +623,18 @@ def _decode_loop_batch(
         hidden, kb, vb = text.decode_step_batch(
             model, cfg, k_all, v_all, text.embed(model, tokens), base_t, pos_bases + i,
             final_len, gap_start, i, dec_start=dec_start, attn_impl=attn_impl,
+            ks_all=ks_all, vs_all=vs_all,
         )
         nxt = torch.argmax(text.final_logits_batch(model, cfg, hidden), dim=-1)
         nxt = torch.where(done, eos, nxt)
         done = done | (nxt == eos)
         if max_steps is not None:
             done = done | (i + 1 >= max_steps)
+        if ks_all is not None:  # [L, B, KV, D] -> int8 + [L, B, KV] scales
+            kb, kbs = q8.quantize_kv_block(kb)
+            vb, vbs = q8.quantize_kv_block(vb)
+            ks_all[:, :, :, gap_start + i] = kbs
+            vs_all[:, :, :, gap_start + i] = vbs
         k_all[:, :, :, gap_start + i] = kb.to(k_all.dtype)
         v_all[:, :, :, gap_start + i] = vb.to(v_all.dtype)
         out[j] = nxt
@@ -632,7 +668,7 @@ def decode_batch(
     live = [i for i, st in enumerate(states) if st.first_token_host != eos]
     if max_new_tokens > 1 and live:
         gap_start = max(states[i].final_len for i in live)
-        k_all, v_all, base_t = assemble_gap_cache(
+        k_all, v_all, base_t, ks_all, vs_all = assemble_gap_cache(
             [states[i] for i in live], _attn_bucket(gap_start + max_new_tokens)
         )
         dev = k_all.device
@@ -649,9 +685,9 @@ def decode_batch(
             dev_vec([states[i].final_len for i in live], torch.int32), gap_start,
             dev_vec([states[i].first_token_host for i in live], torch.int64),
             max_new_tokens - 1, attn_impl=attn_impl, early_stop=early_stop,
-            max_steps=max_steps,
+            max_steps=max_steps, ks_all=ks_all, vs_all=vs_all,
         ).cpu().numpy()
-        del k_all, v_all
+        del k_all, v_all, ks_all, vs_all
         for bi, i in enumerate(live):
             col = tokens[:, bi]
             hit = np.flatnonzero(col == eos)

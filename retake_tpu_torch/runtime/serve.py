@@ -1,5 +1,5 @@
 """Continuous batching: admit new requests mid-decode
-(port of ``retake_tpu/runtime/serve.py``, greedy, bf16 cache).
+(port of ``retake_tpu/runtime/serve.py``, greedy; bf16 or int8 KV cache).
 
 Decode runs in fixed-size SEGMENTS of ``segment_steps`` steps; between
 segments the host admits newly arrived requests into free batch slots and
@@ -22,6 +22,11 @@ harvests finished ones.
   folded onto its prefill tail [final_len_b, final_len_b + c_b) by one
   gather per layer (``_compact_gap``), final_len grows, dec_start resets,
   F -> 0. It always fits: admission guarantees final_len + max_new <= P.
+* int8 KV cache (``kv_cache_dtype: int8``): k/v are int8 and the per-key
+  scales live in planes ``ks_all`` / ``vs_all`` [L, B, KV, P + G] f32 next
+  to them; admission inserts them, every step writes them, compaction moves
+  them with k/v. The TPU kernel's tile rules for them (the int8 bump of the
+  gap columns, the row-aligned block choice) are not carried over.
 
 All device work is issued on one CUDA stream in program order, so a
 segment enqueued after a compaction reads the folded cache; the JAX
@@ -34,7 +39,7 @@ otherwise.
 
 Not ported yet (raise NotImplementedError): the vision-feature and prefix
 caches (``vision_cache_slots`` / ``prefix_cache_slots``), the online mode
-(``start_online``), sampling and the int8 KV cache.
+(``start_online``) and sampling.
 """
 
 from __future__ import annotations
@@ -70,8 +75,11 @@ def _compact_gap(
     final_len: torch.Tensor,  # [B] int
     dec_start: torch.Tensor,  # [B] int
     counts: torch.Tensor,  # [B] int — decoded tokens per slot (0 for free slots)
+    ks_all=None,  # [L, B, KV, S] f32 scale planes of an int8 cache, updated in place
+    vs_all=None,
 ) -> None:
-    """Fold every slot's gap-region decode K/V down onto its prefill tail.
+    """Fold every slot's gap-region decode K/V (and scales) down onto its
+    prefill tail.
 
     Column j of slot b reads from ``dec_start_b + (j - final_len_b)`` inside
     the fold window [final_len_b, final_len_b + c_b) and from itself
@@ -84,9 +92,12 @@ def _compact_gap(
     fold = (j >= fl) & (j < fl + counts.to(torch.int64)[:, None])
     src = torch.where(fold, ds + (j - fl), j).clamp(0, s - 1)  # [B, S]
     idx = src[:, None, :, None].expand(k_all.shape[1:])
-    for buf in (k_all, v_all):
+    planes = [(buf, idx) for buf in (k_all, v_all)]
+    if ks_all is not None:
+        planes += [(buf, idx[..., 0]) for buf in (ks_all, vs_all)]
+    for buf, ix in planes:
         for layer in range(buf.shape[0]):
-            buf[layer].copy_(torch.gather(buf[layer], 2, idx))
+            buf[layer].copy_(torch.gather(buf[layer], 2, ix))
 
 
 @dataclasses.dataclass
@@ -141,8 +152,6 @@ class ContinuousServer:
         rt = engine.retake
         if rt.do_sample:
             raise _not_ported("sampled serving (do_sample)")
-        if rt.kv_cache_dtype:
-            raise _not_ported("the int8 KV cache")
         self.engine = engine
         self.cfg = engine.cfg
         self.stats: Dict[str, int] = {
@@ -189,6 +198,11 @@ class ContinuousServer:
         self.k_all = torch.zeros((l, self.b, kv, s_attn, d), dtype=st.cache.k.dtype,
                                  device=self.device)
         self.v_all = torch.zeros_like(self.k_all)
+        self.ks_all = self.vs_all = None
+        if st.cache.quantized:
+            self.ks_all = torch.zeros(self.k_all.shape[:4], dtype=torch.float32,
+                                      device=self.device)
+            self.vs_all = torch.zeros_like(self.ks_all)
         # host-mirrored per-slot state (tiny vectors, uploaded per segment)
         self.base_t = np.zeros((l, self.b), np.int32)  # admission-adjusted
         self.pos_rest = np.zeros(self.b, np.int32)  # admission-adjusted
@@ -211,6 +225,9 @@ class ContinuousServer:
         cache = st.cache
         _insert_batch_slot(self.k_all, cache.k, slot)
         _insert_batch_slot(self.v_all, cache.v, slot)
+        if self.ks_all is not None:
+            _insert_batch_slot(self.ks_all, cache.k_scale, slot)
+            _insert_batch_slot(self.vs_all, cache.v_scale, slot)
         fl = st.final_len
         if st.reforge:
             base_col = cache.pos[:, 0, fl - 1].cpu().numpy() + 1  # [L]
@@ -237,6 +254,7 @@ class ContinuousServer:
             self.p_bucket, self.cur_dev, self.seg,
             dec_start=_dev(self.dec_start, dev), i0=self.f_global,
             done0=_dev(self.done, dev), attn_impl=self.decode_attn_impl,
+            ks_all=self.ks_all, vs_all=self.vs_all,
         )
         self.f_global += self.seg
         self.cur_dev = tokens[-1].clone()
@@ -287,7 +305,7 @@ class ContinuousServer:
         self.stats["compactions"] += 1
         dev = self.device
         _compact_gap(self.k_all, self.v_all, _dev(self.final_len, dev),
-                     _dev(self.dec_start, dev), _dev(counts, dev))
+                     _dev(self.dec_start, dev), _dev(counts, dev), self.ks_all, self.vs_all)
         self.final_len = self.final_len + counts.astype(np.int32)
         self.dec_start[:] = self.p_bucket
         # row0 = base + F: F resets, fold the consumed F into the bases

@@ -53,6 +53,18 @@ def test_2b_geometry_matches_bench():
     assert dataclasses.asdict(tconfig.qwen2_vl_2b()) == dataclasses.asdict(want)
 
 
+def test_7b_geometry_matches_the_jax_default():
+    """qwen2_vl_7b() is the JAX default Qwen2VLConfig() field by field:
+    vocab 152064, hidden 3584, 28 layers, 28 q / 4 kv heads of 128, untied
+    LM head, ViT 32 x 1280 projecting to 3584."""
+    got, want = tconfig.qwen2_vl_7b(), jconfig.Qwen2VLConfig()
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (got.vocab_size, got.hidden_size, got.intermediate_size) == (152064, 3584, 18944)
+    assert (got.num_hidden_layers, got.num_attention_heads, got.num_key_value_heads) == (28, 28, 4)
+    assert got.head_dim == want.head_dim == 128 and not got.tie_word_embeddings
+    assert (got.vision.depth, got.vision.embed_dim, got.vision.hidden_size) == (32, 1280, 3584)
+
+
 def _config_dicts():
     out = [{}, {"attn_implementation": "sdpa", "scaling_factor": 4, "unknown_key": 1}]
     for name in ("retake_demo.yaml", "retake_demo_xla.yaml"):

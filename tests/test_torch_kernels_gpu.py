@@ -16,6 +16,7 @@ import torch
 
 from retake_tpu_torch.ops import attention
 from retake_tpu_torch.ops.cuda import decode_gapped, flash_prefill, pivot_scores, vit_attention
+from retake_tpu_torch.ops.quantization import int8_linear, quantize_kv_block, quantize_weight
 
 pytestmark = pytest.mark.gpu
 
@@ -163,6 +164,95 @@ def test_decode_attention_batch_gapped_kernel_arm_matches_plain_arm(cuda):
     err = (got.float() - want.float()).abs().max().item()
     assert err <= _bf16_tol(want), (err, _bf16_tol(want))
     assert torch.equal(got[3], vn[3].repeat_interleave(g, dim=0))
+
+
+def _int8(rng, shape, dev):
+    """int8 K/V and per-key scales of N(0, 1) draws (quantize_kv_block)."""
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    return quantize_kv_block(x.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize(
+    "s,cache_len,valid_len", [(256, 0, 250), (256, 1000, 256), (200, 3001, 150)]
+)
+@pytest.mark.parametrize("group", [6, 7])
+def test_flash_prefill_int8_kernel_matches_plain(cuda, s, cache_len, valid_len, group):
+    # the int8 mode: both sides dequantize each element to bf16(f32(x) * s)
+    # and then differ as in bf16 mode (p rounded before vs after the
+    # normalization) -> 2 bf16 steps at the largest output; bitwise repeat
+    rng = np.random.default_rng(cache_len + valid_len + group + 1)
+    kv, d, budget = 2 if group == 6 else 4, 128, 4096
+    q = _bf16(rng, (kv * group, s, d), cuda)
+    (kc, kcs), (vc, vcs) = _int8(rng, (kv, budget, d), cuda), _int8(rng, (kv, budget, d), cuda)
+    (kn, kns), (vn, vns) = _int8(rng, (kv, s, d), cuda), _int8(rng, (kv, s, d), cuda)
+    cl, vl = _i32(cache_len, cuda), _i32(valid_len, cuda)
+    args = (q, kc, vc, cl, kn, vn, vl, kcs, vcs, (kns, vns))
+    n0 = flash_prefill.flash_prefill_attention_int8.launches
+    b0 = flash_prefill.flash_prefill_attention.launches
+    got = flash_prefill.flash_prefill_attention(*args)
+    again = flash_prefill.flash_prefill_attention(*args)
+    torch.cuda.synchronize()
+    assert flash_prefill.flash_prefill_attention_int8.launches == n0 + 2
+    assert flash_prefill.flash_prefill_attention.launches == b0  # the bf16 mode did not run
+    assert torch.equal(got, again)
+    want = flash_prefill.flash_prefill_attention_plain(*args)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _bf16_tol(want), (err, _bf16_tol(want))
+
+
+# int8 K4 cases: the 7B serving shape (4 slots, 4 KV heads, G=7, the
+# 43008-column bucket, mixed live columns), and an all-dead slot
+K4_INT8_CASES = [
+    (4, 4, 7, 43008, [32002, 18498, 4674, 20000], [40960, 40976, 40992, 40960], 41024),
+    (3, 4, 7, 2048, [0, 700, 1500], [2048, 2000, 1800], 2040),
+]
+
+
+@pytest.mark.parametrize("case", range(len(K4_INT8_CASES)))
+def test_decode_gapped_int8_kernel_matches_plain(cuda, case):
+    # scales commuted on both sides; p * vs rounded to bf16 on both sides,
+    # the sums in another order -> after the merge 2 bf16 steps at the
+    # largest output; m to 1e-3; masked columns of the first case hold zero
+    # scales (a masked zero-scale column must stay masked); bitwise repeat
+    b, kv, g, s, fl, ds, write_end = K4_INT8_CASES[case]
+    rng = np.random.default_rng(200 + case)
+    d = 128
+    q = _bf16(rng, (b, kv, g, d), cuda)
+    (kc, ks), (vc, vs) = _int8(rng, (b, kv, s, d), cuda), _int8(rng, (b, kv, s, d), cuda)
+    final_len, dec_start = _i32(fl, cuda), _i32(ds, cuda)
+    live = decode_gapped.live_columns(s, final_len, dec_start, write_end, cuda)[:, None, :]
+    ks, vs = torch.where(live, ks, 0.0), torch.where(live, vs, 0.0)
+    args = (q, kc, vc, final_len, dec_start, write_end, ks, vs)
+    n0 = decode_gapped.decode_gapped_flash_state_int8.launches
+    acc, m, l = decode_gapped.decode_gapped_flash_state(*args)
+    again = decode_gapped.decode_gapped_flash_state(*args)
+    torch.cuda.synchronize()
+    assert decode_gapped.decode_gapped_flash_state_int8.launches == n0 + 2
+    for x, y in zip((acc, m, l), again):
+        assert torch.equal(x, y)
+    pacc, pm, pl = decode_gapped.decode_gapped_flash_state_plain(*args)
+    dead = (pl == 0)
+    assert torch.equal(dead, l == 0)
+    assert (m[dead] == decode_gapped.NEG_INF).all() and (acc[dead] == 0).all()
+    assert (m - pm).abs().max().item() <= 1e-3
+    got = (acc / l.clamp(min=1e-37)[..., None]).to(torch.bfloat16)
+    want = (pacc / pl.clamp(min=1e-37)[..., None]).to(torch.bfloat16)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _bf16_tol(want), (err, _bf16_tol(want))
+
+
+@pytest.mark.parametrize("rows", [4, 16, 17, 300])
+def test_w8a8_linear_on_the_card_matches_the_cpu(cuda, rows):
+    # torch._int_mm on CUDA refuses <= 16 rows, and at k=64 any row count
+    # that is no multiple of 32: int8_matmul_prequant pads with zero rows.
+    # The int32 sums are exact on both devices, the quantizers divide the
+    # same way and the fp32 dequant is the same two products -> 1e-6 relative
+    rng = np.random.default_rng(rows)
+    x = torch.from_numpy(rng.standard_normal((2, rows, 64)).astype(np.float32))
+    wq = quantize_weight(torch.from_numpy(rng.standard_normal((64, 40)).astype(np.float32)))
+    want = int8_linear(x, wq["w"], wq["scale"])
+    got = int8_linear(x.to(cuda), wq["w"].to(cuda), wq["scale"].to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6 * want.abs().max().item())
 
 
 def test_wrappers_raise_on_bad_input(cuda):

@@ -260,8 +260,7 @@ def test_generate_matches_jax_engine(tiny, rng, attn_impl, conf):
 def test_engine_rejects_paths_not_ported(tiny):
     cfg, _, model = tiny
     pcfg = port_cfg(cfg)
-    for rd in ({"do_sample": True}, {"quantization": "int8"}, {"kv_cache_dtype": "int8"},
-               {"attn_implementation": "flash"}, {"spec_decode": True}):
+    for rd in ({"do_sample": True}, {"attn_implementation": "flash"}, {"spec_decode": True}):
         with pytest.raises(NotImplementedError):
             Qwen2VLEngine(pcfg, model, RetakeConfig.from_dict(rd), device="cpu")
     engine = Qwen2VLEngine(pcfg, model, RetakeConfig(), device="cpu")

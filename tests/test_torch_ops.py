@@ -326,9 +326,16 @@ def test_decode_gapped_plain_empty_slot_merges_to_current_token(rng):
 
 
 def test_decode_attention_batch_gapped_rejects_int8_cache(rng):
+    """An int8 cache without its scales, scales beside a float cache, and a
+    k scale without a v scale are refused (ValueError), in both arms."""
     q, kc, vc, kn, vn = _gapped_inputs(rng, 1, 2, 3, 8, 16)
-    with pytest.raises(NotImplementedError):
-        tattn.decode_attention_batch_gapped(
-            tt(q), tt(kc), tt(vc), torch.tensor([4], dtype=torch.int32), 8, 0, tt(kn), tt(vn),
-            k_scale=torch.ones(1, 2, 16), v_scale=torch.ones(1, 2, 16),
-        )
+    k8, v8 = tt(kc).to(torch.int8), tt(vc).to(torch.int8)
+    ones = torch.ones(1, 2, 16)
+    fl = torch.tensor([4], dtype=torch.int32)
+    for impl in ("xla", "pallas"):
+        for kcache, vcache, scales in ((k8, v8, (None, None)), (tt(kc), tt(vc), (ones, ones)),
+                                       (k8, v8, (ones, None))):
+            with pytest.raises(ValueError):
+                tattn.decode_attention_batch_gapped(
+                    tt(q), kcache, vcache, fl, 8, 0, tt(kn), tt(vn), *scales, impl=impl,
+                )

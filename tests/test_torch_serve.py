@@ -3,7 +3,8 @@ CPU, fp32, same weights (the JAX init through the port's weight bridge) and
 same requests (numpy seed): ``decode_step_batch`` and ``final_logits_batch``
 (atol 1e-4 / 1e-5), ``_compact_gap`` (exact), ``generate_batch`` and
 ``ContinuousServer.run`` (exact tokens against the JAX engine's
-``generate_batch``, the JAX server and the JAX sequential ``generate``).
+``generate_batch``, the JAX server and the JAX sequential ``generate``), each
+with a bf16 and an int8 KV cache (the int8 one's scale planes included).
 
 The JAX references run once per module (module-scoped fixtures). Greedy
 tokens are prefix-stable, so a request served at budget m is held against
@@ -19,6 +20,7 @@ import torch
 
 from retake_tpu.models.qwen2_vl import params as jparams
 from retake_tpu.models.qwen2_vl import text as jtext
+from retake_tpu.ops.quantization import quantize_kv_block as jquant_kv
 from retake_tpu.runtime import engine as jengine
 from retake_tpu.runtime.engine import Qwen2VLEngine as JaxEngine
 from retake_tpu.runtime.serve import ContinuousServer as JaxServer
@@ -148,6 +150,29 @@ def test_decode_step_batch_matches_jax(tiny, rng, impl, reforge):
     np.testing.assert_allclose(npy(tv), np.asarray(jv), atol=1e-4)
 
 
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_decode_step_batch_int8_matches_jax(tiny, rng, impl):
+    """One batched step over an int8 gap-layout cache and its scale planes
+    ([L, B, KV, S]; the JAX "pallas" arm takes them stacked with a layer
+    index): hidden and the new (unquantized) K/V blocks; fp32, atol 1e-4."""
+    cfg, jp, model = tiny
+    k_all, v_all, hidden, base_t, pos_rest = _step_inputs(cfg, rng, True)
+    (kq, ks), (vq, vs) = jquant_kv(jnp.asarray(k_all)), jquant_kv(jnp.asarray(v_all))
+    fl, ds = np.array([10, 32, 0], np.int32), np.array([40, 44, 40], np.int32)
+    jh, jk, jv = jtext.decode_step_batch(
+        jp, cfg, kq, vq, jnp.asarray(hidden), jnp.asarray(base_t), jnp.asarray(pos_rest),
+        jnp.asarray(fl), jnp.int32(40), jnp.int32(12), ks, vs, dec_start=jnp.asarray(ds),
+        attn_impl=impl,
+    )
+    th, tk, tv = ttext.decode_step_batch(
+        model, port_cfg(cfg), tt(kq), tt(vq), tt(hidden), tt(base_t), tt(pos_rest), tt(fl),
+        40, 12, dec_start=tt(ds), attn_impl=impl, ks_all=tt(ks), vs_all=tt(vs),
+    )
+    np.testing.assert_allclose(npy(th), np.asarray(jh), atol=1e-4)
+    np.testing.assert_allclose(npy(tk), np.asarray(jk), atol=1e-4)
+    np.testing.assert_allclose(npy(tv), np.asarray(jv), atol=1e-4)
+
+
 def test_final_logits_batch_matches_jax(tiny, rng):
     cfg, jp, model = tiny
     h = rng.normal(size=(3, cfg.hidden_size)).astype(np.float32)
@@ -177,6 +202,25 @@ def test_compact_gap_matches_jax(rng):
     tserve._compact_gap(tk, tv, tt(final_len), tt(dec_start), tt(counts))
     np.testing.assert_array_equal(npy(tk.float()), np.asarray(jk.astype(jnp.float32)))
     np.testing.assert_array_equal(npy(tv.float()), np.asarray(jv.astype(jnp.float32)))
+
+
+def test_compact_gap_moves_kv_and_scales_like_jax(rng):
+    """With an int8 cache the scale planes [L, B, KV, S] move with k/v: every
+    column of k, v and both planes == the JAX batched gather, exactly."""
+    n_layers, b, kv, s, d = 2, 3, 2, 24, 4
+    k = rng.integers(-127, 127, size=(n_layers, b, kv, s, d)).astype(np.int8)
+    v = rng.integers(-127, 127, size=(n_layers, b, kv, s, d)).astype(np.int8)
+    ks, vs = (rng.random(size=(n_layers, b, kv, s)).astype(np.float32) for _ in range(2))
+    final_len, dec_start = np.array([5, 9, 0], np.int32), np.array([14, 16, 12], np.int32)
+    counts = np.array([4, 2, 0], np.int32)
+    want = jcompact(
+        jnp.asarray(k), jnp.asarray(v), jnp.asarray(ks), jnp.asarray(vs), jnp.asarray(final_len),
+        jnp.asarray(dec_start), jnp.asarray(counts), jnp.int32(12),
+    )
+    got = [tt(x) for x in (k, v, ks, vs)]
+    tserve._compact_gap(got[0], got[1], tt(final_len), tt(dec_start), tt(counts), got[2], got[3])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(npy(g), np.asarray(w))
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
@@ -438,6 +482,67 @@ def test_serve_mixed_completion_drains_before_dispatch(tiny, long_set):
     for r, s, m in zip(res, seq, (7, 17, 12)):
         _assert_stream(r.tokens, s, m)
     assert res[0].finish_s < res[2].first_token_s
+
+
+INT8_KV_RT = {"kv_cache_dtype": "int8", **CHUNKED_RT}
+
+
+@pytest.fixture(scope="module")
+def int8_served(tiny):
+    """Three requests of tests/test_serve.py's int8-KV shape and the JAX
+    engine's sequential int8-KV streams at 8 tokens."""
+    cfg = tiny[0]
+    rng = np.random.default_rng(6)
+    reqs = [_req(*video_request(cfg, rng, grid_t=t, prompt_len=p)) for t, p in ((2, 4), (4, 6), (2, 7))]
+    jeng, _ = _engines(tiny, INT8_KV_RT)
+    return reqs, [jeng.generate(**r, max_new_tokens=8).tokens for r in reqs]
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_serve_int8_kv_matches_sequential(tiny, int8_served, impl):
+    """An int8 KV cache under continuous batching (2 slots, 3 requests):
+    admission inserts the scale planes, every step writes them; with no
+    compaction (gap capacity 64) the tokens are the JAX engine's
+    sequential int8-KV streams exactly, with the plain arm and with K4's
+    int8 mode (its plain twin on the CPU), as tests/test_serve.py holds the
+    JAX server."""
+    reqs, seq = int8_served
+    _, eng = _engines(tiny, INT8_KV_RT)
+    srv = ContinuousServer(eng, batch_slots=2, segment_steps=3, max_new_tokens=8,
+                           gap_capacity=64, decode_attn_impl=impl)
+    res = srv.run([dict(r) for r in reqs])
+    assert srv.ks_all is not None and srv.k_all.dtype == torch.int8
+    assert srv.stats["compactions"] == 0
+    for r, s in zip(res, seq):
+        np.testing.assert_array_equal(r.tokens, s)
+
+
+def test_serve_int8_kv_compacts_scale_planes(tiny, int8_served):
+    """Forced compactions (gap capacity 6) with an int8 cache: every request
+    still gets its full budget of in-vocabulary tokens, and the compaction
+    moved scales with the keys (each live slot's folded columns carry a
+    nonzero scale). Tokens are not held to the sequential stream here:
+    compaction reorders fp sums, and int8-coarsened logits sit on near-ties
+    (tests/test_serve.py::test_continuous_serve_int8_kv)."""
+    reqs, _ = int8_served
+    _, eng = _engines(tiny, INT8_KV_RT)
+    srv = ContinuousServer(eng, batch_slots=2, segment_steps=3, max_new_tokens=8,
+                           gap_capacity=6)
+    folds = []
+    orig = srv._compact
+
+    def spy(counts):
+        orig(counts)
+        folds.append((srv.final_len.copy(), srv.ks_all.clone()))
+
+    srv._compact = spy
+    res = srv.run([dict(r) for r in reqs])
+    assert folds, "no compaction ran"
+    for final_len, ks_all in folds:
+        for slot, n in enumerate(final_len):
+            assert (ks_all[:, slot, :, :n] > 0).all()
+    for r in res:
+        assert 1 <= len(r.tokens) <= 8 and ((r.tokens >= 0) & (r.tokens < 512)).all()
 
 
 def test_serve_gap_cols_align_the_bucket(tiny):
