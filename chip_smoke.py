@@ -17,7 +17,11 @@ Phases (each prints; any failure raises and exits non-zero):
   3. each kernel (and int8 mode)   8. one batched decode step, kernel path
      vs its plain PyTorch twin at     vs plain path (first-step logits)
      main-path shapes (error,      9. weight-only int8 2B request vs the
-     CUDA-event medians, repeat)      bf16 one (first logits)
+     CUDA-event medians, repeat),     bf16 one (first logits)
+     its bound, and the time of
+     SDPA where one PyTorch call
+     computes the same function;
+     K1 at four cache fill levels
   4. end to end, with kernel      10. 7B W8A8 + int8-KV request: launch
      launch counts                    counts, bit-exact repeat (cache and
   5. the same request again,          scales), kernel vs plain path
@@ -124,6 +128,14 @@ W8_MIN_COSINE = 0.997
 # BF16_STEPS steps of bf16 at each case's largest output; the row max m is
 # a max of fp32 dot products, summed in another order: 1e-3 abs
 K4_M_TOL = 1e-3
+# published dense peaks of one H100 SXM (NVIDIA data sheet, at 700 W): the
+# least time of a kernel is the larger of its operations over the bf16
+# tensor-core rate and its bytes (each input read once, each output written
+# once) over the HBM rate
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+# fill levels one 2048-frame request's chunks walk through (K1 timing)
+K1_FILLS = (0, 8192, 20000, 32000)
 
 
 def log(msg: str) -> None:
@@ -149,6 +161,56 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def bound(flops: float, nbytes: float) -> tuple:
+    """(least ms on the card, "operations" or "bytes")."""
+    t_ops, t_bytes = 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def with_bound(record: dict, flops: float, nbytes: float, library_ms=None, **extra) -> dict:
+    """A kernels-line record with its bound, its share of it and the
+    library call's time (None where no single PyTorch call computes it)."""
+    b, by = bound(flops, nbytes)
+    return dict(record, bound_ms=b, bound_by=by, bound_share=b / record["ms"],
+                library_ms=library_ms, **extra)
+
+
+def k1_work(heads, kv, s, d, cache_len, valid_len, int8) -> tuple:
+    """FLOPs and bytes K1 needs on these inputs: QK^T and PV (4 * d per
+    live (row, key) pair) over the cache prefix and the chunk's live pairs
+    (row i sees j <= i with j < valid_len, and itself); q, the cache
+    prefix, the chunk's K/V (int8: 1 byte + its share of the f32 scales)
+    and the output once."""
+    vl = min(valid_len, s)
+    pairs = s * cache_len + vl * (vl + 1) // 2 + (s - vl) * (vl + 1)
+    per_row = 2 * d + 8 if int8 else 4 * d
+    return 4 * d * heads * pairs, 4 * heads * s * d + kv * (cache_len + s) * per_row
+
+
+def sdpa_call(q, kc, vc, kn, vn, cache_len: int, valid_len: int):
+    """One F.scaled_dot_product_attention call computing K1's function:
+    K/V concatenated to [KV, cache_len + S, D] and the boolean mask built
+    here, outside any timed region. Returns the call and the backend
+    PyTorch's dispatcher picks for it."""
+    import torch.nn.functional as F
+
+    s, dev = q.shape[1], q.device
+    k = torch.cat([kc[:, :cache_len], kn], dim=1)[None]
+    v = torch.cat([vc[:, :cache_len], vn], dim=1)[None]
+    i = torch.arange(s, device=dev)[:, None]
+    jc = torch.arange(cache_len + s, device=dev)[None, :] - cache_len
+    mask = (jc < 0) | ((jc <= i) & ((jc < valid_len) | (jc == i)))
+    q4 = q[None]
+    try:
+        names = {0: "math", 1: "flash", 2: "efficient", 3: "cudnn"}
+        choice = torch._fused_sdp_choice(q4, k, v, mask, 0.0, False, enable_gqa=True)
+        backend = names.get(int(choice), str(choice))
+    except (AttributeError, RuntimeError, TypeError) as e:  # private API: name only
+        backend = f"unknown ({type(e).__name__})"
+    return (lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask, enable_gqa=True),
+            backend)
 
 
 def bf16(gen, shape, dev):
@@ -187,37 +249,51 @@ def phase_kernels(dev, records):
     gen.manual_seed(1)
     i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
 
-    # K1: 2B heads (12 q / 2 kv, D=128), S=2304, budget 40960
+    # K1: 2B heads (12 q / 2 kv, D=128), S=2304, budget 40960: error at
+    # cache 0 and 20000 with a full and a short chunk; time, TFLOP/s and
+    # SDPA's time at the fill levels K1_FILLS
     kv, g, s, d, budget = 2, 6, 2304, 128, 40960
     q = bf16(gen, (kv * g, s, d), dev)
     kc, vc = bf16(gen, (kv, budget, d), dev), bf16(gen, (kv, budget, d), dev)
     kn, vn = bf16(gen, (kv, s, d), dev), bf16(gen, (kv, s, d), dev)
     k1 = flash_prefill.flash_prefill_attention
-    worst, ms = 0.0, {}
+    worst = 0.0
     for cache_len in (0, 20000):
         for valid_len in (2304, 1999):
             cl, vl = i32(cache_len), i32(valid_len)
-            got = k1(q, kc, vc, cl, kn, vn, vl)
+            got, again = k1(q, kc, vc, cl, kn, vn, vl), k1(q, kc, vc, cl, kn, vn, vl)
             want = flash_prefill.flash_prefill_attention_plain(q, kc, vc, cl, kn, vn, vl)
             torch.cuda.synchronize()
+            check(torch.equal(got, again), "K1 not bitwise repeatable")
             err, tol = max_err(got, want), bf16_tol(want)
             worst = max(worst, err)
-            t_k = cuda_ms(lambda: k1(q, kc, vc, cl, kn, vn, vl), 10)
-            t_p = cuda_ms(
-                lambda: flash_prefill.flash_prefill_attention_plain(q, kc, vc, cl, kn, vn, vl), 3, 1
-            )
-            ms[(cache_len, valid_len)] = (t_k, t_p)
             log(f"K1 cache_len={cache_len} valid_len={valid_len}: max|out| "
-                f"{want.float().abs().max().item():.3e} max_abs_err {err:.3e} (tol {tol:.3e}) "
-                f"kernel {t_k:.3f} ms plain {t_p:.3f} ms")
+                f"{want.float().abs().max().item():.3e} max_abs_err {err:.3e} (tol {tol:.3e})")
             check(err <= tol, ("K1", cache_len, valid_len, err, tol))
-    del kc, vc, got, want
-    records["K1"] = dict(
+    del got, again, want
+    fills = {}
+    for cache_len in K1_FILLS:
+        cl, vl = i32(cache_len), i32(s)
+        t_k = cuda_ms(lambda: k1(q, kc, vc, cl, kn, vn, vl), 10)
+        lib, backend = sdpa_call(q, kc, vc, kn, vn, cache_len, s)
+        t_l = cuda_ms(lib, 10)
+        del lib
+        flops, nbytes = k1_work(kv * g, kv, s, d, cache_len, s, False)
+        fills[cache_len] = (t_k, t_l, flops, nbytes)
+        log(f"K1 fill {cache_len}: kernel {t_k:.3f} ms = {flops / t_k / 1e9:.1f} TFLOP/s "
+            f"({100 * bound(flops, nbytes)[0] / t_k:.1f}% of bound); SDPA ({backend}) "
+            f"{t_l:.3f} ms = {flops / t_l / 1e9:.1f} TFLOP/s")
+    cl, vl = i32(20000), i32(s)
+    t_p = cuda_ms(lambda: flash_prefill.flash_prefill_attention_plain(q, kc, vc, cl, kn, vn, vl), 3, 1)
+    t_k, t_l, flops, nbytes = fills[20000]
+    log(f"K1 cache_len=20000 valid_len={s}: kernel {t_k:.3f} ms plain {t_p:.3f} ms")
+    del kc, vc
+    records["K1"] = with_bound(dict(
         name="flash_prefill_attention", route="cuda",
         source="retake_tpu_torch/csrc/flash_prefill.cu",
         replaces="retake_tpu/ops/pallas/flash_prefill.py:182",
-        max_abs_err=worst, ms=ms[(20000, 2304)][0], plain_ms=ms[(20000, 2304)][1],
-    )
+        max_abs_err=worst, ms=t_k, plain_ms=t_p,
+    ), flops, nbytes, t_l)
 
     # K2: S=2304 scoring q/k
     k2 = pivot_scores.pivot_score_sums
@@ -235,12 +311,14 @@ def phase_kernels(dev, records):
         log(f"K2 valid_len={valid_len}: max_abs_err {err:.3e} (tol {K2_TOL}) "
             f"kernel {ms[valid_len][0]:.3f} ms plain {ms[valid_len][1]:.3f} ms")
         check(err <= K2_TOL, ("K2", valid_len, err))
-    records["K2"] = dict(
+    # QK^T over the valid (row, key) square once; q, k in, [KV, S] f32 out
+    h = kv * g
+    records["K2"] = with_bound(dict(
         name="pivot_score_sums", route="cuda",
         source="retake_tpu_torch/csrc/pivot_scores.cu",
         replaces="retake_tpu/ops/pallas/pivot_scores.py:87",
         max_abs_err=worst, ms=ms[2304][0], plain_ms=ms[2304][1],
-    )
+    ), 2 * d * h * s * s, 2 * h * s * d + 2 * kv * s * d + 4 * kv * s)
     del q, kn, vn
 
     # K3: ViT attention, 16 heads of 80; error at T=8 and at the main path's
@@ -264,14 +342,25 @@ def phase_kernels(dev, records):
         check(err <= tol, ("K3", t, gh * gw, err, tol))
     t_k = cuda_ms(lambda: k3(qkv, cos, sin), 10)
     t_p = cuda_ms(lambda: vit_attention.vit_attention_qkv_plain(qkv, cos, sin), 3, 1)
-    log(f"K3 T=128: kernel {t_k:.3f} ms plain {t_p:.3f} ms")
-    records["K3"] = dict(
+    # the library yardstick: SDPA on q / k rotated beforehand (attention
+    # only, rotary excluded)
+    import torch.nn.functional as F
+
+    q3, k3_, v3 = qkv.unbind(dim=3)  # [T, S, N, D]
+    q3, k3_ = vit_attention._rope_fp32(q3, cos, sin), vit_attention._rope_fp32(k3_, cos, sin)
+    q3, k3_, v3 = (x.transpose(1, 2).contiguous() for x in (q3, k3_, v3))  # [T, N, S, D]
+    t_l = cuda_ms(lambda: F.scaled_dot_product_attention(q3, k3_, v3), 10)
+    t3, s3, n3, _, d3 = qkv.shape
+    log(f"K3 T=128: kernel {t_k:.3f} ms plain {t_p:.3f} ms; SDPA on pre-rotated q/k "
+        f"{t_l:.3f} ms")
+    records["K3"] = with_bound(dict(
         name="vit_attention_qkv", route="cuda",
         source="retake_tpu_torch/csrc/vit_attention.cu",
         replaces="retake_tpu/ops/pallas/vit_attention.py:77",
         max_abs_err=worst, ms=t_k, plain_ms=t_p,
-    )
-    del qkv, got, want
+    ), 4 * t3 * n3 * s3 * s3 * d3, 2 * t3 * s3 * n3 * 4 * d3 + 2 * 4 * s3 * d3, t_l,
+        library_note="SDPA on q/k rotated beforehand: attention only, rotary excluded")
+    del qkv, got, want, q3, k3_, v3
     torch.cuda.empty_cache()
 
     # K4: gap-layout batched decode at the serving shapes of phase 7 (2B
@@ -323,16 +412,18 @@ def phase_kernels(dev, records):
             t_pa = cuda_ms(lambda: attention.decode_attention_batch_gapped(
                 *args, dec_start=dec_start, impl="xla"), 5)
             live = sum(fl) + sum(we - x for x in ds)
+            k4_work = (4 * live * kvh * g * d,  # K/V of the live columns, q, (acc, m, l)
+                       4 * live * kvh * d + 2 * b * kvh * g * d + 4 * b * kvh * g * (d + 2))
             log(f"K4 serving case: kernel {t_k:.4f} ms plain {t_p:.4f} ms; with the merge: "
                 f"kernel arm {t_ka:.4f} ms plain arm {t_pa:.4f} ms; live K/V "
                 f"{live * kvh * d * 2 * 2 / 1e6:.1f} MB -> {live * kvh * d * 4 / t_k / 1e6:.0f} GB/s")
         del q, kc, vc, kn, vn, got, want, state, again
-    records["K4"] = dict(
+    records["K4"] = with_bound(dict(
         name="decode_gapped_flash_state", route="cuda",
         source="retake_tpu_torch/csrc/decode_gapped.cu",
         replaces="retake_tpu/ops/pallas/decode_gapped.py:220",
         max_abs_err=worst, ms=t_k, plain_ms=t_p,
-    )
+    ), *k4_work)
     torch.cuda.empty_cache()
 
 
@@ -370,24 +461,35 @@ def phase_kernels_int8(dev, records):
                 check(torch.equal(got, again), "K1-int8 not bitwise repeatable")
                 err, tol = max_err(got, want), bf16_tol(want)
                 worst = max(worst, err)
-                line = (f"K1-int8 heads {kv * g}/{kv} cache_len={cache_len} valid_len={valid_len}: "
-                        f"max|out| {want.float().abs().max().item():.3e} max_abs_err {err:.3e} "
-                        f"(tol {tol:.3e})")
-                if cache_len == 20000 and valid_len == 2304:
-                    t_k = cuda_ms(lambda: k1(*args), 10)
-                    t_p = cuda_ms(lambda: flash_prefill.flash_prefill_attention_plain(*args), 3, 1)
-                    ms[kv] = (t_k, t_p)
-                    line += f" kernel {t_k:.3f} ms plain {t_p:.3f} ms"
-                log(line)
+                log(f"K1-int8 heads {kv * g}/{kv} cache_len={cache_len} valid_len={valid_len}: "
+                    f"max|out| {want.float().abs().max().item():.3e} max_abs_err {err:.3e} "
+                    f"(tol {tol:.3e})")
                 check(err <= tol, ("K1-int8", kv, cache_len, valid_len, err, tol))
-        del q, kc, vc, kn, vn, got, again, want
+        del got, again, want
+        # time at the fill levels (7B heads), and the plain twin at 20000
+        for cache_len in K1_FILLS if kv == 4 else (20000,):
+            args = (q, kc, vc, i32(cache_len), kn, vn, i32(s), kcs, vcs, (kns, vns))
+            t_k = cuda_ms(lambda: k1(*args), 10)
+            flops, nbytes = k1_work(kv * g, kv, s, d, cache_len, s, True)
+            ms[(kv, cache_len)] = (t_k, flops, nbytes)
+            log(f"K1-int8 heads {kv * g}/{kv} fill {cache_len}: kernel {t_k:.3f} ms = "
+                f"{flops / t_k / 1e9:.1f} TFLOP/s ({100 * bound(flops, nbytes)[0] / t_k:.1f}% "
+                f"of bound)")
+        if kv == 4:
+            args = (q, kc, vc, i32(20000), kn, vn, i32(s), kcs, vcs, (kns, vns))
+            t_p = cuda_ms(lambda: flash_prefill.flash_prefill_attention_plain(*args), 3, 1)
+            log(f"K1-int8 heads 28/4 cache_len=20000: kernel {ms[(4, 20000)][0]:.3f} ms "
+                f"plain {t_p:.3f} ms")
+        del q, kc, vc, kn, vn
         torch.cuda.empty_cache()
-    records["K1-int8"] = dict(
+    t_k, flops, nbytes = ms[(4, 20000)]
+    # no single PyTorch call dequantizes per-key int8 K/V and attends
+    records["K1-int8"] = with_bound(dict(
         name="flash_prefill_attention_int8", route="cuda",
         source="retake_tpu_torch/csrc/flash_prefill.cu",
         replaces="retake_tpu/ops/pallas/flash_prefill.py:182",
-        max_abs_err=worst, ms=ms[4][0], plain_ms=ms[4][1],
-    )
+        max_abs_err=worst, ms=t_k, plain_ms=t_p,
+    ), flops, nbytes)
 
     # K4-int8 at the 7B serving shape: 4 slots, 4 KV heads, G=7, the
     # 43008-column bucket, mixed live columns; the second case has an
@@ -429,15 +531,17 @@ def phase_kernels_int8(dev, records):
             t_k = cuda_ms(lambda: k4(*sargs), 20)
             t_p = cuda_ms(lambda: decode_gapped.decode_gapped_flash_state_plain(*sargs), 5)
             live = sum(fl) + b * gap_filled
+            k4_work = (4 * live * kvh * g * d,  # int8 K/V + scales, q, (acc, m, l)
+                       live * kvh * (2 * d + 8) + 2 * b * kvh * g * d + 4 * b * kvh * g * (d + 2))
             log(f"K4-int8 serving case: kernel {t_k:.4f} ms plain {t_p:.4f} ms; live K/V "
                 f"{live * kvh * (2 * d + 8) / 1e6:.1f} MB -> "
                 f"{live * kvh * (2 * d + 8) / t_k / 1e6:.0f} GB/s")
-    records["K4-int8"] = dict(
+    records["K4-int8"] = with_bound(dict(
         name="decode_gapped_flash_state_int8", route="cuda",
         source="retake_tpu_torch/csrc/decode_gapped.cu",
         replaces="retake_tpu/ops/pallas/decode_gapped.py:220",
         max_abs_err=worst, ms=t_k, plain_ms=t_p,
-    )
+    ), *k4_work)
     del q, kc, vc, ks, vs, state, again, got, want
     torch.cuda.empty_cache()
 
@@ -783,6 +887,8 @@ def main() -> int:
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)")
 
     # 3. kernels vs plain twins
+    log(f"[3] bounds against the published H100 SXM dense peaks ({PEAK_BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s bf16, {PEAK_BYTES_PER_S / 1e12:.2f} TB/s) on {smi}")
     records = {}
     phase_kernels(dev, records)
     phase_kernels_int8(dev, records)

@@ -14,6 +14,11 @@ single rounding site); without it the bf16 chunk is quantized here, as the
 TPU kernel does. Every key and value row is dequantized to
 ``bf16(f32(x) * s)`` before the products (the TPU kernel's numerics). This
 mode launches ``flash_prefill_attention_int8`` and counts there.
+
+The kernel's launch plan is fixed by its constants (``BQ``, ``BK``,
+``STAGES``, ``OPS8``): ``launch_plan`` states it as a plain function, which
+the wrapper uses to refuse shapes the kernel does not take and the CPU tests
+check. BQ = 128 and 4 ring stages were kept by measurement (``PERF.md``).
 """
 
 from __future__ import annotations
@@ -24,7 +29,31 @@ from retake_tpu_torch.ops import attention
 from retake_tpu_torch.ops.cuda import _build, _checks
 from retake_tpu_torch.ops.quantization import quantize_kv_block
 
-MAX_GROUP = 16  # query heads per KV head = warps per CTA (<= 512 threads)
+BK = 64  # keys per K/V tile
+BQ = 128  # query rows per CTA: 64 per consumer warpgroup
+STAGES = 4  # K/V tiles in flight in the TMA ring
+OPS8 = 3  # int8 mode: dequantized bf16 operand tiles in flight
+
+
+def launch_plan(heads: int, num_kv: int, s: int, d: int, int8: bool) -> dict:
+    """Grid, block and dynamic shared memory of one K1 launch, as the
+    kernel's launcher sets them: one CTA per (query head, block of BQ query
+    rows), head index fastest; two consumer warpgroups and one producer
+    warpgroup (two in int8 mode, where the producers also dequantize).
+    Shared memory (the kernel's ``layout``): 1024 bytes of alignment slack,
+    the Q block, the K|V tiles and the mbarriers; bf16: STAGES operand tiles
+    with full / empty barriers each; int8: STAGES int8 tiles (each rounded up
+    to 1024 bytes, one barrier each) and OPS8 dequantized operand tiles."""
+    if heads % num_kv or d not in (64, 128):
+        raise ValueError(f"K1: unsupported heads {heads}/{num_kv} or head_dim {d}")
+    operand = 2 * BK * d * 2
+    if int8:
+        smem = (1024 + BQ * d * 2 + STAGES * (-(-2 * BK * d // 1024) * 1024) + OPS8 * operand
+                + 8 * (2 * OPS8 + 1 + STAGES))
+    else:
+        smem = 1024 + BQ * d * 2 + STAGES * operand + 8 * (2 * STAGES + 1)
+    return dict(grid=(heads, -(-s // BQ)), block=128 * (BQ // 64 + (2 if int8 else 1)), bq=BQ,
+                bk=BK, stages=STAGES, smem_bytes=smem)
 
 
 def _chunk_int8(key_new, value_new, new_scales):
@@ -57,11 +86,13 @@ def _check_common(name, query, key_cache, value_cache, key_new, value_new):
     _checks.dtype(name, torch.bfloat16, query)
     h, s, d = query.shape
     kv, budget, _ = key_cache.shape
-    if h % kv or h // kv > MAX_GROUP or d not in (64, 128):
-        raise ValueError(f"{name}: unsupported heads {h}/{kv} or head_dim {d}")
+    launch_plan(h, kv, s, d, False)  # refuses what the kernel does not take
     _checks.shape(name, value_cache, (kv, budget, d))
     _checks.shape(name, key_new, (kv, s, d))
     _checks.shape(name, value_new, (kv, s, d))
+    for t in (query, key_cache, value_cache, key_new, value_new):
+        if t.data_ptr() % 16:  # TMA reads from 16-byte-aligned addresses
+            raise ValueError(f"{name}: tensors must start on a 16-byte boundary")
     return h, s, d, kv, budget
 
 

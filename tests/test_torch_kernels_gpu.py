@@ -45,24 +45,33 @@ def _bf16_tol(want, steps=2):
     return steps * 2.0 ** (np.floor(np.log2(top)) - 7)
 
 
-@pytest.mark.parametrize(
-    "s,cache_len,valid_len", [(256, 0, 250), (256, 1000, 256), (256, 4096, 199), (200, 37, 150)]
-)
+# K1 cases (S, cache_len, valid_len) over a 4096-row cache: S no multiple of
+# the 128-row query block (200, 2305) and the main path's 2304; cache_len no
+# multiple of the 64-key tile (37, 3001), equal to the budget, and 0 with
+# valid_len < S
+K1_CASES = [(256, 0, 250), (256, 1000, 256), (256, 4096, 199), (200, 37, 150),
+            (2304, 3001, 2304), (2305, 0, 1999)]
+
+
+@pytest.mark.parametrize("s,cache_len,valid_len", K1_CASES)
 @pytest.mark.parametrize("group", [6, 7])
-def test_flash_prefill_kernel_matches_plain(cuda, s, cache_len, valid_len, group):
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_prefill_kernel_matches_plain(cuda, s, cache_len, valid_len, group, d):
     # bf16 output of an average of N(0,1) values: both paths round p to bf16
     # (the kernel before, the plain version after normalizing) -> 2 bf16
-    # steps at the largest output
-    rng = np.random.default_rng(cache_len + valid_len + group)
-    kv, d, budget = 2, 128, 4096
+    # steps at the largest output; no split over keys -> bitwise repeat
+    rng = np.random.default_rng(cache_len + valid_len + group + d)
+    kv, budget = 2, 4096
     q = _bf16(rng, (kv * group, s, d), cuda)
     kc, vc = _bf16(rng, (kv, budget, d), cuda), _bf16(rng, (kv, budget, d), cuda)
     kn, vn = _bf16(rng, (kv, s, d), cuda), _bf16(rng, (kv, s, d), cuda)
     cl, vl = _i32(cache_len, cuda), _i32(valid_len, cuda)
     n0 = flash_prefill.flash_prefill_attention.launches
     got = flash_prefill.flash_prefill_attention(q, kc, vc, cl, kn, vn, vl)
+    again = flash_prefill.flash_prefill_attention(q, kc, vc, cl, kn, vn, vl)
     torch.cuda.synchronize()
-    assert flash_prefill.flash_prefill_attention.launches == n0 + 1
+    assert flash_prefill.flash_prefill_attention.launches == n0 + 2
+    assert torch.equal(got, again)
     want = flash_prefill.flash_prefill_attention_plain(q, kc, vc, cl, kn, vn, vl)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= _bf16_tol(want), (err, _bf16_tol(want))
@@ -172,16 +181,20 @@ def _int8(rng, shape, dev):
     return quantize_kv_block(x.to(torch.bfloat16))
 
 
-@pytest.mark.parametrize(
-    "s,cache_len,valid_len", [(256, 0, 250), (256, 1000, 256), (200, 3001, 150)]
-)
+# the same edges in int8 mode (S, cache_len, valid_len), 4096-row cache
+K1_INT8_CASES = [(256, 0, 250), (256, 1000, 256), (200, 3001, 150), (2304, 4096, 2304),
+                 (2305, 37, 1999)]
+
+
+@pytest.mark.parametrize("s,cache_len,valid_len", K1_INT8_CASES)
 @pytest.mark.parametrize("group", [6, 7])
-def test_flash_prefill_int8_kernel_matches_plain(cuda, s, cache_len, valid_len, group):
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_prefill_int8_kernel_matches_plain(cuda, s, cache_len, valid_len, group, d):
     # the int8 mode: both sides dequantize each element to bf16(f32(x) * s)
     # and then differ as in bf16 mode (p rounded before vs after the
     # normalization) -> 2 bf16 steps at the largest output; bitwise repeat
-    rng = np.random.default_rng(cache_len + valid_len + group + 1)
-    kv, d, budget = 2 if group == 6 else 4, 128, 4096
+    rng = np.random.default_rng(cache_len + valid_len + group + d + 1)
+    kv, budget = 2 if group == 6 else 4, 4096
     q = _bf16(rng, (kv * group, s, d), cuda)
     (kc, kcs), (vc, vcs) = _int8(rng, (kv, budget, d), cuda), _int8(rng, (kv, budget, d), cuda)
     (kn, kns), (vn, vns) = _int8(rng, (kv, s, d), cuda), _int8(rng, (kv, s, d), cuda)
