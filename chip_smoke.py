@@ -90,24 +90,26 @@ SERVE_REQUESTS = [(512, 0.0, None), (64, 0.0, 17), (256, 0.0, None), (128, 0.0, 
 # on top of RETAKE_CONFIG (its eval_batch_size 4 is SERVE_KW's batch_slots)
 SERVING_7B = {"attn_implementation": "pallas", "quantization": "w8a8", "kv_cache_dtype": "int8"}
 # tolerances, kernel vs plain twin on the same bf16 inputs (N(0, 1) draws).
-# K1/K3 write bf16 outputs and round p to bf16 (K1 before normalizing, its
-# twin after): each case is held to BF16_STEPS steps of bf16 at its own
-# largest output, one step for the final rounding and one for the rest. The
-# outputs' size moves 100x between cases (attention over 2304 keys vs over
-# 22000), so one absolute figure would be loose where they are small.
+# K1/K3 write bf16 outputs and round p to bf16 (the kernels before
+# normalizing, their twins after): each case is held to BF16_STEPS steps of
+# bf16 at its own largest output, one step for the final rounding and one
+# for the rest. The outputs' size moves 100x between cases (attention over
+# 2304 keys vs over 22000), so one absolute figure would be loose where
+# they are small.
 # K2 is fp32 arithmetic on both sides (order of sums, exp2 vs exp), on
 # column sums of size ~G: 1e-4 abs, 20x the error first seen on the H100.
 BF16_STEPS = 2
 K2_TOL = 1e-4
 # end to end, kernel path vs plain path (bf16, random weights, 64 frames):
-# the paths round differently (K1 rounds p to bf16 before normalizing, its
-# twin after; K2's sums differ in the last bits, which can swap PivotKV's
-# choice between near-equal tokens), and 28 layers carry the differences to
-# the logits. On the H100: max|diff| / max|logit| = 0.0154; the bound
-# leaves 3x headroom. Greedy tokens are not compared: random weights repeat
-# one token whatever the input. What PivotKV kept is compared instead, as
-# the share of cached (layer, position) entries both paths hold: 0.985 on
-# the H100, so near-ties moved 1.5% of the entries; the bound allows 6x that.
+# the paths round differently (K1 and K3 round p to bf16 before
+# normalizing, their twins after; K2's sums differ in the last bits, which
+# can swap PivotKV's choice between near-equal tokens), and 28 layers carry
+# the differences to the logits. On the H100: max|diff| / max|logit| =
+# 0.0154; the bound leaves 3x headroom. Greedy tokens are not compared:
+# random weights repeat one token whatever the input. What PivotKV kept is
+# compared instead, as the share of cached (layer, position) entries both
+# paths hold: 0.985 on the H100, so near-ties moved 1.5% of the entries; the
+# bound allows 6x that.
 E2E_REL_LOGIT_TOL = 0.05
 E2E_MIN_KEPT_AGREEMENT = 0.9
 # the same comparison for 7B under W8A8 + int8 KV (phase 10). The plain
@@ -332,9 +334,10 @@ def phase_kernels(dev, records):
         cos_np, sin_np = vision_rotary_tables(gh, gw, 80, 2)
         cos, sin = torch.from_numpy(cos_np).to(dev), torch.from_numpy(sin_np).to(dev)
         qkv = bf16(gen, (t, gh * gw, 16, 3, 80), dev)
-        got = k3(qkv, cos, sin)
+        got, again = k3(qkv, cos, sin), k3(qkv, cos, sin)
         want = vit_attention.vit_attention_qkv_plain(qkv, cos, sin)
         torch.cuda.synchronize()
+        check(torch.equal(got, again), "K3 not bitwise repeatable")
         err, tol = max_err(got, want), bf16_tol(want)
         worst = max(worst, err)
         log(f"K3 T={t} S={gh * gw}: max|out| {want.float().abs().max().item():.3e} "
@@ -360,7 +363,7 @@ def phase_kernels(dev, records):
         max_abs_err=worst, ms=t_k, plain_ms=t_p,
     ), 4 * t3 * n3 * s3 * s3 * d3, 2 * t3 * s3 * n3 * 4 * d3 + 2 * 4 * s3 * d3, t_l,
         library_note="SDPA on q/k rotated beforehand: attention only, rotary excluded")
-    del qkv, got, want, q3, k3_, v3
+    del qkv, got, again, want, q3, k3_, v3
     torch.cuda.empty_cache()
 
     # K4: gap-layout batched decode at the serving shapes of phase 7 (2B

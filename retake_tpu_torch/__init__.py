@@ -6,14 +6,20 @@ each module here keeps the module path of its JAX counterpart
 ``torch`` and never ``jax``.
 
 Package map:
-  models/qwen2_vl/  config dataclasses, weights (random init, JAX bridge),
-                    ``VisionTower`` / ``TextDecoder`` / ``Qwen2VLModel``
-  ops/              M-RoPE/YaRN, attention, PivotKV, DPSelect (plain torch)
+  device.py         the device a caller names (no silent CPU fallback)
+  models/qwen2_vl/  config dataclasses, weights (random init, int8 on the
+                    device, JAX bridge), ``VisionTower`` / ``TextDecoder`` /
+                    ``Qwen2VLModel``
+  ops/              M-RoPE/YaRN, attention, PivotKV, DPSelect (plain torch);
+                    ``quantization.py``: int8 quantizers, weight-only and
+                    W8A8 linears
   ops/cuda/         wrappers of the hand-written Hopper kernels (K1 prefill
-                    attention, K2 PivotKV scores, K3 ViT attention), their
-                    plain twins and the nvcc build
+                    attention and its int8-KV mode, K2 PivotKV scores, K3 ViT
+                    attention, K4 gap-layout batched decode and its int8-KV
+                    mode), their plain twins and the nvcc build
   csrc/             the CUDA C++ sources (sm_90a)
-  runtime/          static KV cache and the chunked-prefill engine
+  runtime/          static KV cache (bf16 or int8), the chunked-prefill
+                    engine, ``serve.py``: the continuous-batching server
   utils/            config surface, host positions, stage timing
 """
 

@@ -460,24 +460,6 @@ __global__ void __launch_bounds__(128 * (NCWG + producer_wgs<INT8>()), 1)
 
 // ---- host side: tensor maps through the driver entry point (no -lcuda) ----
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encoder() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // [heads, rows, d] row-major, boxes of [box_rows, box_cols]; 128-byte swizzle
 // for bf16 operand tiles, none for int8 staging tiles
 bool map3d(CUtensorMap* m, const void* ptr, bool int8, int d, int rows, int heads, int box_cols,

@@ -75,6 +75,45 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// (the library is linked without -lcuda); nullptr if the driver lacks it
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
 // ---- ordering ---------------------------------------------------------------
 
 // make this thread's ordinary shared-memory stores visible to the async
@@ -108,9 +147,24 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 //  * MN-major operand (rows of 64 contiguous n values, one row per k): lbo =
 //    the bytes from one 64-wide n block to the next, sbo = 1024 bytes, the
 //    step from one group of 8 k rows to the next.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+__device__ __forceinline__ uint64_t smem_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
   return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return smem_desc(saddr, lbo, sbo, 1);
+}
+
+// The same for a 32-byte-swizzled tile (layout type 3, what a TMA load with
+// CU_TENSOR_MAP_SWIZZLE_32B writes): rows of 16 bf16 (32 bytes), the two
+// 16-byte halves of row r swapped when bit 2 of r is set; the pattern
+// repeats every 8 rows (256 bytes). MN-major operand: lbo = the bytes from
+// one 16-wide n block to the next, sbo = 256, the step from one group of 8
+// k rows to the next.
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return smem_desc(saddr, lbo, sbo, 3);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -131,6 +185,15 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for registers an in-flight wgmma reads (its A fragments): the
+// compiler must neither reuse them nor reload their values before the
+// product is waited for
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // The accumulator of m64nNk16 (f32), per warp w of the warpgroup and lane
@@ -156,6 +219,25 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da, 
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// A from registers, B K-major (rows of n, k contiguous) from shared memory
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// A from registers, B MN-major (transposed: rows of k, n contiguous)
 __device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32], const uint32_t (&a)[4],
                                                      uint64_t db, int accumulate) {
   asm volatile(
@@ -170,6 +252,25 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32], const uint
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n80k16_tb(float (&d)[40], const uint32_t (&a)[4],
+                                                     uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 

@@ -4,8 +4,17 @@ Replaces ``retake_tpu/ops/pallas/vit_attention.py:vit_attention_qkv``. Input
 is the qkv projection output with HEAD-MAJOR columns, [T, S, N, 3, D]
 (``[q_h | k_h | v_h]`` per head); cos/sin [S, D] fp32. Per temporal slice
 and head: rotary on q and k in fp32, cast to the activation dtype, full
-bidirectional softmax over the S patches, p normalized and cast before
-p @ v. Output [T, S, N*D].
+bidirectional softmax over the S patches in fp32. Output [T, S, N*D].
+
+The plain twin normalizes p and then casts it (the TPU kernel's order); the
+kernel runs one pass with an online softmax, so it casts p before
+normalizing and divides the accumulated P.V by the row sum at the end (the
+TPU's K1 order).
+
+The kernel's launch plan is fixed by its constants (``BQ``, ``BK``,
+``RAW_STAGES``, ``OP_STAGES``): ``launch_plan`` states it as a plain
+function, which the wrapper uses to refuse shapes the kernel does not take
+and the CPU tests check.
 """
 
 from __future__ import annotations
@@ -15,6 +24,30 @@ import math
 import torch
 
 from retake_tpu_torch.ops.cuda import _build, _checks
+
+BK = 64  # keys per tile
+BQ = 192  # query rows per CTA: 64 per consumer warpgroup; 576 = 3 x 192
+RAW_STAGES = 2  # raw K | cos | sin tiles in flight (TMA)
+OP_STAGES = 3  # rotated K | V operand tiles in flight
+MAX_GRID_YZ = 65535  # heads and slices are grid dimensions y and z
+
+
+def launch_plan(t: int, s: int, n: int, d: int) -> dict:
+    """Grid, block and dynamic shared memory of one K3 launch, as the
+    kernel's launcher sets them: one CTA per (block of BQ query rows, head,
+    slice), the query block fastest; three consumer warpgroups and one
+    producer warpgroup. Shared memory (the kernel's ``layout``): 1024 bytes
+    of alignment slack, RAW_STAGES raw tiles (BK rows of bf16 k and f32 cos
+    and sin), OP_STAGES operand tiles (rotated K as ceil(D / 64) boxes of BK
+    x 128 bytes, V as D / 16 boxes of BK x 32 bytes) and their mbarriers
+    (one per raw tile, full / empty per operand tile)."""
+    if d not in (64, 80) or s < 1 or not 1 <= n <= MAX_GRID_YZ or not 1 <= t <= MAX_GRID_YZ:
+        raise ValueError(f"K3: unsupported shape t={t} s={s} n={n} head_dim={d}")
+    raw = BK * d * 2 + 2 * BK * d * 4
+    operand = -(-d // 64) * BK * 128 + d // 16 * BK * 32
+    smem = 1024 + RAW_STAGES * raw + OP_STAGES * operand + 8 * (RAW_STAGES + 2 * OP_STAGES)
+    return dict(grid=(-(-s // BQ), n, t), block=128 * (BQ // 64 + 1), bq=BQ, bk=BK,
+                stages=OP_STAGES, smem_bytes=smem)
 
 
 def _rope_fp32(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -56,10 +89,11 @@ def vit_attention_qkv(
     _checks.dtype(name, torch.bfloat16, qkv)
     _checks.dtype(name, torch.float32, cos, sin)
     t, s, n, three, d = qkv.shape
-    if three != 3 or d not in (64, 80):
+    if three != 3:
         raise ValueError(f"{name}: unsupported qkv shape {tuple(qkv.shape)}")
+    launch_plan(t, s, n, d)  # refuses what the kernel does not take
     if any(x.data_ptr() % 16 for x in (qkv, cos, sin)):
-        raise ValueError(f"{name}: tensors must be 16-byte aligned (16-byte vector loads)")
+        raise ValueError(f"{name}: tensors must start on a 16-byte boundary (TMA)")
     _checks.shape(name, cos, (s, d))
     _checks.shape(name, sin, (s, d))
     out = torch.empty((t, s, n * d), dtype=qkv.dtype, device=qkv.device)

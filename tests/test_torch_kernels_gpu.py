@@ -93,20 +93,34 @@ def test_pivot_scores_kernel_matches_plain(cuda, s, valid_len):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-# 576: a 448x252 frame; 1196: 644x364; 5120: the processor's largest frame
-@pytest.mark.parametrize("s", [576, 100, 1196, 5120])
-def test_vit_attention_kernel_matches_plain(cuda, s):
-    # bf16 output; p rounded to bf16 on both sides after normalizing -> 2
-    # bf16 steps at the largest output
-    rng = np.random.default_rng(s)
-    t, n, d = 3, 4, 80
+# K3 cases (T, N, S, D): 576 = a 448x252 frame (the main path's 16 heads
+# of 80, and 4 heads), 100 a small image, 1196 = 644x364, 5120 the
+# processor's largest frame; D = 64 beside the model's 80 (1196 at D = 64
+# and 2 heads failed in every row past the first key tile when a Q fragment
+# was left unwritten); S = 64 with one head, one key tile and no masked key
+# (the descriptor check)
+K3_CASES = [(3, 4, 576, 80), (2, 16, 576, 80), (3, 4, 100, 80), (3, 4, 1196, 80),
+            (1, 4, 5120, 80), (2, 16, 576, 64), (3, 4, 100, 64), (3, 2, 1196, 64),
+            (1, 4, 5120, 64), (1, 1, 64, 80), (1, 1, 64, 64)]
+
+
+@pytest.mark.parametrize("t,n,s,d", K3_CASES)
+def test_vit_attention_kernel_matches_plain(cuda, t, n, s, d):
+    # bf16 output: the kernel rounds p to bf16 before normalizing (online
+    # softmax, out = acc / l), the plain twin after normalizing -> 2 bf16
+    # steps at the largest output; no split over keys -> bitwise repeat
+    rng = np.random.default_rng(s + n + d)
     qkv = _bf16(rng, (t, s, n, 3, d), cuda)
     ang = rng.uniform(0, 6.3, size=(s, d)).astype(np.float32)
     cos = torch.from_numpy(np.cos(ang)).to(cuda)
     sin = torch.from_numpy(np.sin(ang)).to(cuda)
+    n0 = vit_attention.vit_attention_qkv.launches
     got = vit_attention.vit_attention_qkv(qkv, cos, sin)
-    want = vit_attention.vit_attention_qkv_plain(qkv, cos, sin)
+    again = vit_attention.vit_attention_qkv(qkv, cos, sin)
     torch.cuda.synchronize()
+    assert vit_attention.vit_attention_qkv.launches == n0 + 2
+    assert torch.equal(got, again)
+    want = vit_attention.vit_attention_qkv_plain(qkv, cos, sin)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= _bf16_tol(want), (err, _bf16_tol(want))
 
