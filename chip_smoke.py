@@ -21,7 +21,9 @@ Phases (each prints; any failure raises and exits non-zero):
      its bound, and the time of
      SDPA where one PyTorch call
      computes the same function;
-     K1 at four cache fill levels
+     K1 at four cache fill levels;
+     K4's device time per launch
+     (CUDA-graph replay)
   4. end to end, with kernel      10. 7B W8A8 + int8-KV request: launch
      launch counts                    counts, bit-exact repeat (cache and
   5. the same request again,          scales), kernel vs plain path
@@ -373,6 +375,7 @@ def phase_kernels(dev, records):
     # dec_start or None, gap_start, gap_filled)
     from retake_tpu_torch.ops import attention
     from retake_tpu_torch.ops.cuda import decode_gapped
+    from retake_tpu_torch.tools.k4_timing import graph_ms
 
     k4 = decode_gapped.decode_gapped_flash_state
     cases = [
@@ -408,6 +411,7 @@ def phase_kernels(dev, records):
         check(err <= tol and m_err <= K4_M_TOL, ("K4", ci, err, tol, m_err))
         if ci == 0:
             t_k = cuda_ms(lambda: k4(q4, kc, vc, final_len, dec0, we), 20)
+            d_k = graph_ms(lambda: k4(q4, kc, vc, final_len, dec0, we), 50)
             t_p = cuda_ms(lambda: decode_gapped.decode_gapped_flash_state_plain(
                 q4, kc, vc, final_len, dec0, we), 5)
             t_ka = cuda_ms(lambda: attention.decode_attention_batch_gapped(
@@ -417,7 +421,8 @@ def phase_kernels(dev, records):
             live = sum(fl) + sum(we - x for x in ds)
             k4_work = (4 * live * kvh * g * d,  # K/V of the live columns, q, (acc, m, l)
                        4 * live * kvh * d + 2 * b * kvh * g * d + 4 * b * kvh * g * (d + 2))
-            log(f"K4 serving case: kernel {t_k:.4f} ms plain {t_p:.4f} ms; with the merge: "
+            log(f"K4 serving case: kernel {t_k:.4f} ms (device {d_k:.4f} ms) plain {t_p:.4f} ms; "
+                f"with the merge: "
                 f"kernel arm {t_ka:.4f} ms plain arm {t_pa:.4f} ms; live K/V "
                 f"{live * kvh * d * 2 * 2 / 1e6:.1f} MB -> {live * kvh * d * 4 / t_k / 1e6:.0f} GB/s")
         del q, kc, vc, kn, vn, got, want, state, again
@@ -425,7 +430,7 @@ def phase_kernels(dev, records):
         name="decode_gapped_flash_state", route="cuda",
         source="retake_tpu_torch/csrc/decode_gapped.cu",
         replaces="retake_tpu/ops/pallas/decode_gapped.py:220",
-        max_abs_err=worst, ms=t_k, plain_ms=t_p,
+        max_abs_err=worst, ms=t_k, device_ms=d_k, plain_ms=t_p,
     ), *k4_work)
     torch.cuda.empty_cache()
 
@@ -436,6 +441,7 @@ def phase_kernels_int8(dev, records):
     from retake_tpu_torch.ops import attention
     from retake_tpu_torch.ops.cuda import decode_gapped, flash_prefill
     from retake_tpu_torch.ops.quantization import quantize_kv_block
+    from retake_tpu_torch.tools.k4_timing import graph_ms
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -532,18 +538,20 @@ def phase_kernels_int8(dev, records):
         check(err <= tol and m_err <= K4_M_TOL, ("K4-int8", ci, err, tol, m_err))
         if ci == 0:
             t_k = cuda_ms(lambda: k4(*sargs), 20)
+            d_k = graph_ms(lambda: k4(*sargs), 50)
             t_p = cuda_ms(lambda: decode_gapped.decode_gapped_flash_state_plain(*sargs), 5)
             live = sum(fl) + b * gap_filled
             k4_work = (4 * live * kvh * g * d,  # int8 K/V + scales, q, (acc, m, l)
                        live * kvh * (2 * d + 8) + 2 * b * kvh * g * d + 4 * b * kvh * g * (d + 2))
-            log(f"K4-int8 serving case: kernel {t_k:.4f} ms plain {t_p:.4f} ms; live K/V "
+            log(f"K4-int8 serving case: kernel {t_k:.4f} ms (device {d_k:.4f} ms) plain "
+                f"{t_p:.4f} ms; live K/V "
                 f"{live * kvh * (2 * d + 8) / 1e6:.1f} MB -> "
                 f"{live * kvh * (2 * d + 8) / t_k / 1e6:.0f} GB/s")
     records["K4-int8"] = with_bound(dict(
         name="decode_gapped_flash_state_int8", route="cuda",
         source="retake_tpu_torch/csrc/decode_gapped.cu",
         replaces="retake_tpu/ops/pallas/decode_gapped.py:220",
-        max_abs_err=worst, ms=t_k, plain_ms=t_p,
+        max_abs_err=worst, ms=t_k, device_ms=d_k, plain_ms=t_p,
     ), *k4_work)
     del q, kc, vc, ks, vs, state, again, got, want
     torch.cuda.empty_cache()

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks: mbarriers, TMA tensor loads, warpgroup
-// MMA (wgmma) and its shared-memory matrix descriptors, written as inline
-// PTX. Used by the kernels that run a TMA ring feeding wgmma consumers.
+// Hopper (sm_90a) building blocks: mbarriers, TMA tensor loads, 1-D bulk
+// copies, warpgroup MMA (wgmma) and its shared-memory matrix descriptors,
+// written as inline PTX. Used by the kernels that run an asynchronous-copy
+// ring feeding their consumer warps.
 //
 // Shared-memory tiles here are the 128-byte-swizzled layout that a TMA load
 // with CU_TENSOR_MAP_SWIZZLE_128B writes: a tile of R rows of 64 bf16 (128
@@ -94,6 +95,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// 1-D bulk copy of ``bytes`` (a multiple of 16) from global to shared
+// memory, both addresses 16-byte aligned, completing on ``bar`` as
+// transaction bytes. Needs no tensor map.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // cuTensorMapEncodeTiled, reached through the runtime's driver entry point
 // (the library is linked without -lcuda); nullptr if the driver lacks it
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -120,6 +133,12 @@ inline EncodeTiledFn encoder() {
 // proxy (wgmma operand reads, TMA)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// order generic-proxy writes to global memory (this thread's, and those
+// it has acquired from other threads) before its later async-proxy reads
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // barrier ``id`` (1..15) over ``count`` threads (a multiple of 32)

@@ -47,6 +47,25 @@ __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// Four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses of matrix i, and r[i] receives its fragment (thread (g, t):
+// row g, elements 2t and 2t + 1; with .trans, rows 2t and 2t + 1 of
+// column g). Rows of 16 bytes; a row stride that is 16 bytes off a multiple
+// of 128 keeps the eight rows of a matrix on distinct banks.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
 // reductions over the four threads of a group (lanes sharing g)
 __device__ __forceinline__ float group_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));

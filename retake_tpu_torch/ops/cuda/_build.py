@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``retake_tpu_torch/csrc/*.cu``).
 
-All sources compile with one ``nvcc`` call for ``sm_90a`` into one shared
+Each source compiles in its own ``nvcc`` process for ``sm_90a``, all
+started together, and one more ``nvcc`` links the objects into one shared
 library with a plain C interface, loaded with ctypes (pointers and the
 stream go in as ``c_void_p``, ints as ``c_int``). The build runs at first
 use into ``retake_tpu_torch/_build/`` (gitignored), named by a hash of the
@@ -24,7 +25,7 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # exported C functions: name -> argument types (all return int cudaError_t)
@@ -33,9 +34,8 @@ SIGNATURES = {
     "retake_flash_prefill_int8": [_P] * 12 + [_I] * 5 + [_P],
     "retake_pivot_scores_bf16": [_P] * 5 + [_I] * 4 + [_P],
     "retake_vit_attention_bf16": [_P] * 4 + [_I] * 4 + [_P],
-    "retake_decode_gapped_bf16": [_P] * 10 + [_I] * 6 + [_P],
-    "retake_decode_gapped_int8": [_P] * 12 + [_I] * 6 + [_P],
-    "retake_decode_gapped_split_count": [_I],
+    "retake_decode_gapped_bf16": [_P] * 8 + [_I] * 6 + [_P],
+    "retake_decode_gapped_int8": [_P] * 10 + [_I] * 6 + [_P],
 }
 
 _lib = None
@@ -73,20 +73,37 @@ def build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc()] + NVCC_FLAGS + [f"-I{SRC_DIR}", "-o", str(tmp)]
-    if os.environ.get("RETAKE_NVCC_VERBOSE", "") not in ("", "0"):
-        cmd += ["-Xptxas", "-v"]
-    cmd += [str(p) for p in cu]
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    verbose = os.environ.get("RETAKE_NVCC_VERBOSE", "") not in ("", "0")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    if proc.stderr.strip() and "-v" in cmd:
-        print(proc.stderr)
+    objs, procs = [], []
+    for src in cu:
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc] + NVCC_FLAGS + [f"-I{SRC_DIR}", "-c", "-o", str(obj), str(src)]
+        if verbose:
+            cmd += ["-Xptxas", "-v"]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                            text=True)))
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
+        elif verbose and err.strip():
+            print(err)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        cmd = [nvcc] + ARCH_FLAGS + ["-shared", "-o", str(tmp)] + [str(o) for o in objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                          f"{proc.stdout}\n{proc.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, so)
     build_seconds = time.perf_counter() - t0
     return so
@@ -115,6 +132,8 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_of(t) -> int:
+    """The current CUDA stream of ``t``'s device, as a raw pointer (the
+    call PyTorch's own generated launchers make: no Stream object)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -24,10 +24,21 @@ stacked-cache mode either.
 On CUDA, ``final_len`` and ``dec_start`` are int32 device tensors [B] that
 the kernel reads itself, and ``write_end`` is a host int (the server's write
 pointer lives on the host), so a launch needs no device read.
+
+One call is one launch. Its splits write their partial states to a
+workspace and count their arrival per group of splits; the last of a group
+merges the group, and the last group merges the groups, each in a fixed
+order, and sets its counter back to 0. The workspace and counters are
+made once per (device, plan), the counters zeroed then, and reused by every
+later call with that plan: calls on one stream run in order, so no two
+launches share them at once (calls on two streams at once with one plan
+would). The outputs are one ``torch.empty`` viewed as acc, m and l. Nothing
+else is allocated, so a call can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -35,6 +46,16 @@ import torch
 from retake_tpu_torch.ops.cuda import _build, _checks
 
 NEG_INF = -1e30
+# the kernel's fixed plan (csrc/decode_gapped.cu): columns per tile and per
+# CTA, ring stages, consumer warps, chosen by timing at the serving shapes
+# (PERF.md); the most splits of one (slot, head) it takes, and the splits
+# its merge sums as one group first
+BK = 64
+SPLIT = 1024
+STAGES = 3
+NCW = 4
+MAX_SPLITS = 128
+GSPLITS = 8
 MAX_GROUP = 16  # query rows per KV head: one mma.sync row tile
 
 
@@ -75,37 +96,81 @@ def decode_gapped_flash_state_plain(
     return acc, m, l
 
 
+@functools.lru_cache(maxsize=None)
+def launch_plan(b: int, kv: int, g: int, s: int, d: int, int8: bool) -> dict:
+    """Grid, block, dynamic shared memory, workspace and counters of one K4
+    launch, as the kernel's constants fix them: one CTA per (SPLIT-column
+    range, slot x KV head), split index fastest; NCW consumer warps and one
+    producer warp. Shared memory (the kernel's ``Plan``): 1024 bytes of
+    alignment slack, STAGES ring stages (each 1024-aligned) of [K tile | V
+    tile | int8: two f32 scale rows], each tile BK cache rows, or the merge
+    (its scratch, then the warps' states or two staging buffers of
+    partials) where that is larger, then 2 * STAGES + 2 mbarriers. The workspace
+    holds every split's partial (acc [G, D], m and l [G]) in f32 and one per
+    group of GSPLITS splits, and int32 arrival counters: one per (slot, head)
+    for its groups and one per group for its splits. Raises on what the
+    kernel does not take."""
+    if not (1 <= g <= MAX_GROUP) or d not in (64, 128) or s < 1 or b < 1 or kv < 1:
+        raise ValueError(f"K4: unsupported group {g}, head_dim {d}, S {s} or batch {b} x {kv}")
+    n_split = -(-s // SPLIT)
+    if b * kv > 65535 or n_split > MAX_SPLITS:
+        raise ValueError(f"K4: {b} x {kv} (slot, head) pairs or S {s} exceed the kernel's grid")
+    stage = -(-(2 * BK * d * (1 if int8 else 2) + (2 * BK * 4 if int8 else 0)) // 1024) * 1024
+    max_src = max(GSPLITS, MAX_SPLITS // GSPLITS)
+    scratch = -(-(MAX_GROUP + MAX_SPLITS + 2 * (MAX_SPLITS // GSPLITS) + 1
+                  + max_src * 2 * MAX_GROUP) * 4 // 16) * 16
+    merge = scratch + max((NCW * 16 * d + 2 * NCW * 16) * 4, 2 * MAX_GROUP * d * 4)
+    n_groups = -(-n_split // GSPLITS)
+    return dict(grid=(n_split, b * kv), block=32 * (NCW + 1), bk=BK, split=SPLIT,
+                stages=STAGES, consumer_warps=NCW,
+                smem_bytes=1024 + max(STAGES * stage, merge) + (2 * STAGES + 2) * 8,
+                workspace_floats=b * kv * (n_split + n_groups) * g * (d + 2),
+                counters=b * kv * (1 + n_groups))
+
+
+# (device, plan) -> (workspace f32, counters int32), made once and reused
+_workspaces: dict = {}
+
+
+def _workspace(dev, plan):
+    key = (dev, plan["grid"], plan["workspace_floats"])
+    ws = _workspaces.get(key)
+    if ws is None:
+        ws = (torch.empty(plan["workspace_floats"], dtype=torch.float32, device=dev),
+              torch.zeros(plan["counters"], dtype=torch.int32, device=dev))
+        _workspaces[key] = ws
+    return ws
+
+
 def _launch(name, fn_name, query, key_cache, value_cache, final_len, dec_start, write_end,
             scales=()):
     b, kv, g, d = query.shape
     s = key_cache.shape[2]
-    if g > MAX_GROUP or d not in (64, 128):
-        raise ValueError(f"{name}: unsupported group {g} or head_dim {d}")
+    plan = launch_plan(b, kv, g, s, d, bool(scales))
     _checks.shape(name, key_cache, (b, kv, s, d))
     _checks.shape(name, value_cache, (b, kv, s, d))
     _checks.shape(name, final_len, (b,))
     _checks.shape(name, dec_start, (b,))
     for sc in scales:
         _checks.shape(name, sc, (b, kv, s))
+    for t in (query, key_cache, value_cache, *scales):
+        if t.data_ptr() % 16:  # TMA and bulk copies read from 16-byte-aligned addresses
+            raise ValueError(f"{name}: tensors must start on a 16-byte boundary")
     if not isinstance(write_end, int):
         raise TypeError(f"{name}: write_end must be a host int on CUDA")
-    lib = _build.library()
-    n_split = lib.retake_decode_gapped_split_count(s)
-    dev = query.device
-    part_acc = torch.empty((b * kv, n_split, g, d), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((b * kv, n_split, 2, g), dtype=torch.float32, device=dev)
-    acc = torch.empty((b, kv, g, d), dtype=torch.float32, device=dev)
-    m = torch.empty((b, kv, g), dtype=torch.float32, device=dev)
-    l = torch.empty((b, kv, g), dtype=torch.float32, device=dev)
-    rc = getattr(lib, fn_name)(
+    work, counters = _workspace(query.device, plan)
+    out = torch.empty(b * kv * g * (d + 2), dtype=torch.float32, device=query.device)
+    rc = getattr(_build.library(), fn_name)(
         query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
         *(sc.data_ptr() for sc in scales),
-        final_len.data_ptr(), dec_start.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        b, kv, g, s, d, write_end, _build.stream_of(query),
+        final_len.data_ptr(), dec_start.data_ptr(), work.data_ptr(), counters.data_ptr(),
+        out.data_ptr(), b, kv, g, s, d, write_end, _build.stream_of(query),
     )
     _build.check(rc, name)
-    return acc, m, l
+    n = b * kv * g
+    return (out.as_strided((b, kv, g, d), (kv * g * d, g * d, d, 1)),
+            out.as_strided((b, kv, g), (kv * g, g, 1), n * d),
+            out.as_strided((b, kv, g), (kv * g, g, 1), n * (d + 1)))
 
 
 def decode_gapped_flash_state(

@@ -1,17 +1,18 @@
-"""The launch plans of K1 and K3 (``ops/cuda/{flash_prefill,vit_attention}.launch_plan``),
-checked on the CPU.
+"""The launch plans of K1, K3 and K4
+(``ops/cuda/{flash_prefill,vit_attention,decode_gapped}.launch_plan``), checked on the CPU.
 
 The kernels cannot run here, but the plans they are launched with are plain
 Python: the grid must cover every (head, query row) (K3: every slice, head
 and patch row), the shared memory must fit one H100 block, the TMA ring
 must have stages to overlap, and the query block must be whole 64-row
-warpgroups.
+warpgroups. K4's splits must cover every cache column once, two CTAs must
+fit one SM, and its workspace must hold one partial state per split.
 """
 
 import numpy as np
 import pytest
 
-from retake_tpu_torch.ops.cuda import flash_prefill, vit_attention
+from retake_tpu_torch.ops.cuda import decode_gapped, flash_prefill, vit_attention
 
 # (query heads, KV heads): Qwen2-VL-2B and -7B
 HEADS = [(12, 2), (28, 4)]
@@ -114,3 +115,77 @@ def test_vit_launch_plan_refuses_what_the_kernel_does_not_take(kw):
     args.update(kw)
     with pytest.raises(ValueError):
         vit_attention.launch_plan(**args)
+
+
+# one H100 SM: 228 KB of shared memory, of which a CTA may take 227 KB and
+# the system reserves 1 KB per CTA
+SM_SHARED = 233_472
+CTA_RESERVED = 1024
+
+# K4 shapes (B, KV, G, S, D): the 2B and 7B serving cases (4 slots, the
+# 43008-column bucket), S below one split, S no multiple of the tile, G = 1
+# and 16, D = 64
+K4_SHAPES = [(4, 2, 6, 43008, 128), (4, 4, 7, 43008, 128), (2, 2, 6, 1000, 128),
+             (3, 4, 7, 2048, 128), (1, 1, 1, 1, 64), (2, 3, 16, 777, 64), (1, 2, 16, 513, 128)]
+
+
+@pytest.mark.parametrize("shape", K4_SHAPES)
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_gapped_plan_covers_every_column_once(shape, int8):
+    b, kv, g, s, d = shape
+    plan = decode_gapped.launch_plan(b, kv, g, s, d, int8)
+    n_split, n_bk = plan["grid"]
+    assert n_bk == b * kv
+    seen = np.zeros(s, dtype=np.int64)
+    for x in range(n_split):  # CTA x takes columns x * split .. + split
+        seen[x * plan["split"]:min((x + 1) * plan["split"], s)] += 1
+    assert (seen == 1).all()
+    assert (n_split - 1) * plan["split"] < s  # no split starts past the end
+    assert plan["split"] % plan["bk"] == 0 and plan["bk"] == 64
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_gapped_plan_fits_two_ctas_per_sm(d, int8):
+    plan = decode_gapped.launch_plan(4, 4, 16, 43008, d, int8)
+    assert plan["smem_bytes"] <= 232_448
+    assert 2 * (plan["smem_bytes"] + CTA_RESERVED) <= SM_SHARED
+    assert plan["stages"] >= 2 and plan["consumer_warps"] >= 1
+    assert plan["block"] == 32 * (plan["consumer_warps"] + 1)  # + the producer warp
+
+
+@pytest.mark.parametrize("shape", K4_SHAPES)
+def test_decode_gapped_plan_workspace_matches_the_grid(shape):
+    b, kv, g, s, d = shape
+    plan = decode_gapped.launch_plan(b, kv, g, s, d, False)
+    n_split, n_bk = plan["grid"]
+    # a partial acc [G, D] and (m, l) [2, G] per split and per group of 8
+    # splits of every (slot, head)
+    n_groups = -(-n_split // 8)
+    assert plan["workspace_floats"] == n_bk * (n_split + n_groups) * (g * d + 2 * g)
+    # one arrival counter per (slot, head) for its groups, one per group
+    assert plan["counters"] == n_bk * (1 + n_groups)
+
+
+def test_decode_gapped_plan_pins_the_serving_plans():
+    # 1024-column splits, 3 ring stages, 4 consumer warps + 1 producer; a
+    # stage is 64 K rows and 64 V rows (int8: and the two f32 scale rows,
+    # the stage rounded up to 1024 bytes), after 1024 bytes of alignment
+    # slack; then 8 mbarriers (the ring's and the merge's two)
+    bf16 = decode_gapped.launch_plan(4, 2, 6, 43008, 128, False)
+    assert bf16 == dict(grid=(42, 8), block=160, bk=64, split=1024, stages=3, consumer_warps=4,
+                        smem_bytes=1024 + 3 * 2 * 64 * 256 + 64,
+                        workspace_floats=8 * (42 + 6) * 6 * 130, counters=8 * 7)
+    int8 = decode_gapped.launch_plan(4, 4, 7, 43008, 128, True)
+    assert int8 == dict(grid=(42, 16), block=160, bk=64, split=1024, stages=3, consumer_warps=4,
+                        smem_bytes=1024 + 3 * (2 * 64 * 128 + 1024) + 64,
+                        workspace_floats=16 * (42 + 6) * 7 * 130, counters=16 * 7)
+
+
+@pytest.mark.parametrize("kw", [dict(g=17), dict(g=0), dict(d=96), dict(d=80), dict(s=0),
+                                dict(b=0), dict(s=128 * 1024 + 1)])
+def test_decode_gapped_plan_refuses_what_the_kernel_does_not_take(kw):
+    args = dict(b=4, kv=2, g=6, s=43008, d=128, int8=False)
+    args.update(kw)
+    with pytest.raises(ValueError):
+        decode_gapped.launch_plan(**args)

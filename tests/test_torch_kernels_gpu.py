@@ -125,50 +125,79 @@ def test_vit_attention_kernel_matches_plain(cuda, t, n, s, d):
     assert err <= _bf16_tol(want), (err, _bf16_tol(want))
 
 
-# K4 cases (B, KV, G, S, final_len, dec_start or None, write_end): the serving
-# shapes of chip_smoke.py (2B heads, 4 slots, the 43008-column bucket, a free
-# slot), a 7B-shaped case, a tail S that is no multiple of the 64-column
-# tile, and a slot with no live column next to one whose decode region alone
-# is live
+# K4 cases (B, KV, G, S, final_len, dec_start or None, write_end, D): the
+# serving shapes of chip_smoke.py (2B heads, 4 slots, the 43008-column
+# bucket, a free slot), a 7B-shaped case, a tail S that is no multiple of the
+# 64-column tile, and a slot with no live column next to one whose decode
+# region alone is live; then the edges of the one-launch kernel: D = 64,
+# G = 1 and 16, S below one 1024-column split, final_len = 0 and = S,
+# write_end = dec_start (no decode region), a (slot, head) with exactly one
+# live split (written directly, no merge), and none live at all
 K4_CASES = [
-    (4, 2, 6, 43008, [32002, 18498, 4674, 0], [40960, 40976, 40992, 40960], 41024),
-    (4, 2, 6, 43008, [32002, 18498, 4674, 0], None, 40990),
-    (4, 4, 7, 8192, [8000, 1, 5000, 7000], [7800, 8100, 8150, 8150], 8190),
-    (2, 2, 6, 1000, [999, 0], [900, 1000], 1000),
-    (3, 2, 6, 2048, [0, 0, 700], [2048, 1500, 2000], 1530),
+    (4, 2, 6, 43008, [32002, 18498, 4674, 0], [40960, 40976, 40992, 40960], 41024, 128),
+    (4, 2, 6, 43008, [32002, 18498, 4674, 0], None, 40990, 128),
+    (4, 4, 7, 8192, [8000, 1, 5000, 7000], [7800, 8100, 8150, 8150], 8190, 128),
+    (2, 2, 6, 1000, [999, 0], [900, 1000], 1000, 128),
+    (3, 2, 6, 2048, [0, 0, 700], [2048, 1500, 2000], 1530, 128),
+    (2, 2, 6, 3000, [2500, 100], [2900, 2950], 2990, 64),
+    (3, 2, 1, 2048, [1000, 0, 2048], [1500, 2040, 2048], 2048, 128),
+    (2, 2, 16, 4100, [4100, 37], [4100, 4000], 4100, 128),
+    (2, 2, 6, 300, [250, 0], [280, 290], 299, 128),
+    (2, 2, 6, 43008, [0, 0], [40960, 40970], 41000, 128),
+    (2, 2, 6, 2048, [1500, 0], [1600, 1600], 1600, 64),
+    (1, 4, 16, 1111, [1111], [1111], 1111, 64),
 ]
 
 
-@pytest.mark.parametrize("case", range(len(K4_CASES)))
-def test_decode_gapped_kernel_matches_plain(cuda, case):
-    # after the merge, bf16 output of an average of N(0, 1) values: p is
-    # rounded to bf16 on both sides, the sums run in another order -> 2 bf16
-    # steps at the largest output; m is a max of fp32 dot products -> 1e-3
-    b, kv, g, s, fl, ds, write_end = K4_CASES[case]
-    rng = np.random.default_rng(100 + case)
-    d = 128
-    q = _bf16(rng, (b, kv, g, d), cuda)
-    kc, vc = _bf16(rng, (b, kv, s, d), cuda), _bf16(rng, (b, kv, s, d), cuda)
-    final_len = _i32(fl, cuda)
-    dec_start = _i32([write_end - 1] * b if ds is None else ds, cuda)
-    n0 = decode_gapped.decode_gapped_flash_state.launches
-    acc, m, l = decode_gapped.decode_gapped_flash_state(q, kc, vc, final_len, dec_start, write_end)
-    again = decode_gapped.decode_gapped_flash_state(q, kc, vc, final_len, dec_start, write_end)
-    torch.cuda.synchronize()
-    assert decode_gapped.decode_gapped_flash_state.launches == n0 + 2
-    for x, y in zip((acc, m, l), again):  # fixed-order sums: bitwise repeatable
-        assert torch.equal(x, y)
-    pacc, pm, pl = decode_gapped.decode_gapped_flash_state_plain(
-        q, kc, vc, final_len, dec_start, write_end
-    )
+def _check_k4_state(state, plain):
+    """A K4 state against its plain twin: the empty state exact, m to 1e-3
+    (a max of fp32 dot products summed in another order), the merged
+    output (acc / l, bf16) to 2 bf16 steps at its largest value (p rounded
+    to bf16 on both sides, the sums in another order)."""
+    acc, m, l = state
+    pacc, pm, pl = plain
     dead = (pl == 0)
     assert torch.equal(dead, l == 0)
     assert (m[dead] == decode_gapped.NEG_INF).all() and (acc[dead] == 0).all()
-    assert (m - pm).abs().max().item() <= 1e-3
+    if dead.all():
+        return
+    assert (m[~dead] - pm[~dead]).abs().max().item() <= 1e-3
     got = (acc / l.clamp(min=1e-37)[..., None]).to(torch.bfloat16)
     want = (pacc / pl.clamp(min=1e-37)[..., None]).to(torch.bfloat16)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= _bf16_tol(want), (err, _bf16_tol(want))
+
+
+def _k4_inputs(case, rng, dev, int8=False):
+    b, kv, g, s, fl, ds, write_end, d = case
+    q = _bf16(rng, (b, kv, g, d), dev)
+    final_len = _i32(fl, dev)
+    dec_start = _i32([write_end - 1] * b if ds is None else ds, dev)
+    if not int8:
+        kc, vc = _bf16(rng, (b, kv, s, d), dev), _bf16(rng, (b, kv, s, d), dev)
+        return (q, kc, vc, final_len, dec_start, write_end)
+    (kc, ks), (vc, vs) = _int8(rng, (b, kv, s, d), dev), _int8(rng, (b, kv, s, d), dev)
+    return (q, kc, vc, final_len, dec_start, write_end, ks, vs)
+
+
+@pytest.mark.parametrize("case", range(len(K4_CASES)))
+def test_decode_gapped_kernel_matches_plain(cuda, case):
+    rng = np.random.default_rng(100 + case)
+    args = _k4_inputs(K4_CASES[case], rng, cuda)
+    q, kc, vc = args[:3]
+    # dead columns' cache rows hold NaN: the kernel zeroes their stage rows
+    live = decode_gapped.live_columns(kc.shape[2], *args[3:6], cuda)[:, None, :, None]
+    kc.masked_fill_(~live, float("nan"))
+    vc.masked_fill_(~live, float("nan"))
+    n0 = decode_gapped.decode_gapped_flash_state.launches
+    state = decode_gapped.decode_gapped_flash_state(*args)
+    again = decode_gapped.decode_gapped_flash_state(*args)
+    torch.cuda.synchronize()
+    assert decode_gapped.decode_gapped_flash_state.launches == n0 + 2
+    for x, y in zip(state, again):  # fixed-order sums: bitwise repeatable
+        assert torch.equal(x, y)
+    kc0, vc0 = kc.masked_fill(~live, 0.0), vc.masked_fill(~live, 0.0)
+    _check_k4_state(state, decode_gapped.decode_gapped_flash_state_plain(q, kc0, vc0, *args[3:]))
 
 
 def test_decode_attention_batch_gapped_kernel_arm_matches_plain_arm(cuda):
@@ -227,45 +256,104 @@ def test_flash_prefill_int8_kernel_matches_plain(cuda, s, cache_len, valid_len, 
     assert err <= _bf16_tol(want), (err, _bf16_tol(want))
 
 
-# int8 K4 cases: the 7B serving shape (4 slots, 4 KV heads, G=7, the
-# 43008-column bucket, mixed live columns), and an all-dead slot
+# int8 K4 cases (B, KV, G, S, final_len, dec_start, write_end, D): the 7B
+# serving shape (4 slots, 4 KV heads, G=7, the 43008-column bucket, mixed
+# live columns), an all-dead slot, and the edges of K4_CASES; S = 1001 and
+# 777 put the scale rows of odd heads at offsets that are no multiple of 16
+# bytes (read by plain loads, not bulk copies)
 K4_INT8_CASES = [
-    (4, 4, 7, 43008, [32002, 18498, 4674, 20000], [40960, 40976, 40992, 40960], 41024),
-    (3, 4, 7, 2048, [0, 700, 1500], [2048, 2000, 1800], 2040),
+    (4, 4, 7, 43008, [32002, 18498, 4674, 20000], [40960, 40976, 40992, 40960], 41024, 128),
+    (3, 4, 7, 2048, [0, 700, 1500], [2048, 2000, 1800], 2040, 128),
+    (2, 2, 6, 3000, [2500, 100], [2900, 2950], 2990, 64),
+    (3, 2, 1, 1001, [1001, 0, 500], [1001, 990, 700], 1001, 128),
+    (2, 4, 16, 777, [600, 777], [700, 777], 760, 128),
+    (2, 2, 7, 300, [250, 0], [280, 290], 299, 64),
+    (2, 4, 7, 43008, [0, 0], [40960, 40970], 41000, 128),
+    (2, 2, 6, 2048, [1500, 0], [1600, 1600], 1600, 128),
 ]
 
 
 @pytest.mark.parametrize("case", range(len(K4_INT8_CASES)))
 def test_decode_gapped_int8_kernel_matches_plain(cuda, case):
     # scales commuted on both sides; p * vs rounded to bf16 on both sides,
-    # the sums in another order -> after the merge 2 bf16 steps at the
-    # largest output; m to 1e-3; masked columns of the first case hold zero
-    # scales (a masked zero-scale column must stay masked); bitwise repeat
-    b, kv, g, s, fl, ds, write_end = K4_INT8_CASES[case]
+    # the sums in another order (tolerances in _check_k4_state); bitwise
+    # repeat. Dead columns hold random int8 rows and NaN scales, which the
+    # kernel brings by bulk copy (16-byte aligned scale rows: S = 43008,
+    # 2048, 3000, 300) or by plain loads (odd heads at S = 1001 and 777, and
+    # every tail tile) and must mask; the plain twin gets them zeroed (a
+    # masked zero-scale column must stay masked)
     rng = np.random.default_rng(200 + case)
-    d = 128
-    q = _bf16(rng, (b, kv, g, d), cuda)
-    (kc, ks), (vc, vs) = _int8(rng, (b, kv, s, d), cuda), _int8(rng, (b, kv, s, d), cuda)
-    final_len, dec_start = _i32(fl, cuda), _i32(ds, cuda)
-    live = decode_gapped.live_columns(s, final_len, dec_start, write_end, cuda)[:, None, :]
-    ks, vs = torch.where(live, ks, 0.0), torch.where(live, vs, 0.0)
-    args = (q, kc, vc, final_len, dec_start, write_end, ks, vs)
+    q, kc, vc, fl, ds, we, ks, vs = _k4_inputs(K4_INT8_CASES[case], rng, cuda, int8=True)
+    live = decode_gapped.live_columns(kc.shape[2], fl, ds, we, cuda)[:, None, :]
+    args = (q, kc, vc, fl, ds, we, ks.masked_fill(~live, float("nan")),
+            vs.masked_fill(~live, float("nan")))
     n0 = decode_gapped.decode_gapped_flash_state_int8.launches
-    acc, m, l = decode_gapped.decode_gapped_flash_state(*args)
+    b0 = decode_gapped.decode_gapped_flash_state.launches
+    state = decode_gapped.decode_gapped_flash_state(*args)
     again = decode_gapped.decode_gapped_flash_state(*args)
     torch.cuda.synchronize()
     assert decode_gapped.decode_gapped_flash_state_int8.launches == n0 + 2
-    for x, y in zip((acc, m, l), again):
+    assert decode_gapped.decode_gapped_flash_state.launches == b0  # the bf16 mode did not run
+    for x, y in zip(state, again):
         assert torch.equal(x, y)
-    pacc, pm, pl = decode_gapped.decode_gapped_flash_state_plain(*args)
-    dead = (pl == 0)
-    assert torch.equal(dead, l == 0)
-    assert (m[dead] == decode_gapped.NEG_INF).all() and (acc[dead] == 0).all()
-    assert (m - pm).abs().max().item() <= 1e-3
-    got = (acc / l.clamp(min=1e-37)[..., None]).to(torch.bfloat16)
-    want = (pacc / pl.clamp(min=1e-37)[..., None]).to(torch.bfloat16)
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= _bf16_tol(want), (err, _bf16_tol(want))
+    zeroed = (kc.masked_fill(~live[..., None], 0), vc.masked_fill(~live[..., None], 0),
+              fl, ds, we, ks.masked_fill(~live, 0.0), vs.masked_fill(~live, 0.0))
+    _check_k4_state(state, decode_gapped.decode_gapped_flash_state_plain(q, *zeroed))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_gapped_repeats_bitwise_over_50_calls(cuda, int8):
+    # the last-arriving split resets its counter: 50 calls back to back on
+    # one workspace give the same bits
+    case = K4_INT8_CASES[0] if int8 else K4_CASES[0]
+    args = _k4_inputs(case, np.random.default_rng(300), cuda, int8)
+    first = decode_gapped.decode_gapped_flash_state(*args)
+    outs = [decode_gapped.decode_gapped_flash_state(*args) for _ in range(50)]
+    torch.cuda.synchronize()
+    for state in outs:
+        for x, y in zip(first, state):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_gapped_interleaved_shapes_share_the_workspace(cuda, int8):
+    # (4 slots, 2 heads) and (2 slots, 4 heads) at S = 43008 and 42900 have
+    # one plan, so they share one workspace and its counters; a third shape
+    # has its own. Called interleaved, each gives the bits it gives alone.
+    rng = np.random.default_rng(301)
+    cases = [(4, 2, 6, 43008, [32002, 18498, 4674, 0], [40960, 40976, 40992, 40960], 41024, 128),
+             (2, 4, 6, 42900, [20000, 41000], [41000, 41010], 41030, 128),
+             (3, 2, 6, 1000, [999, 0, 10], [900, 1000, 500], 1000, 128)]
+    plans = [decode_gapped.launch_plan(*c[:4], c[7], int8) for c in cases]
+    assert plans[0] == plans[1]
+    inputs = [_k4_inputs(c, rng, cuda, int8) for c in cases]
+    alone = [decode_gapped.decode_gapped_flash_state(*a) for a in inputs]
+    mixed = [decode_gapped.decode_gapped_flash_state(*inputs[i % 3]) for i in range(12)]
+    torch.cuda.synchronize()
+    for i, state in enumerate(mixed):
+        for x, y in zip(alone[i % 3], state):
+            assert torch.equal(x, y)
+    for a, state in zip(inputs, alone):
+        _check_k4_state(state, decode_gapped.decode_gapped_flash_state_plain(*a))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_gapped_launch_captures_in_a_cuda_graph(cuda, int8):
+    # one launch, no allocation but its output: after one eager warm-up
+    # call (which makes the workspace), a call captures in a CUDA graph and
+    # its replay gives the eager bits
+    case = K4_INT8_CASES[0] if int8 else K4_CASES[0]
+    args = _k4_inputs(case, np.random.default_rng(302), cuda, int8)
+    eager = decode_gapped.decode_gapped_flash_state(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = decode_gapped.decode_gapped_flash_state(*args)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    for x, y in zip(eager, captured):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("rows", [4, 16, 17, 300])
