@@ -22,7 +22,8 @@ Phases (each prints; any failure raises and exits non-zero):
      SDPA where one PyTorch call
      computes the same function;
      K1 at four cache fill levels;
-     K4's device time per launch
+     K2 at 2B and 7B heads; K2's
+     and K4's device time per call
      (CUDA-graph replay)
   4. end to end, with kernel      10. 7B W8A8 + int8-KV request: launch
      launch counts                    counts, bit-exact repeat (cache and
@@ -299,30 +300,53 @@ def phase_kernels(dev, records):
         max_abs_err=worst, ms=t_k, plain_ms=t_p,
     ), flops, nbytes, t_l)
 
-    # K2: S=2304 scoring q/k
+    # K2: S=2304 scoring q/k at 2B heads (K1's q and chunk keys) and at 7B
+    # heads (28 / 4): error and bitwise repeat at valid_len 2304 and 1999;
+    # wrapper time (CUDA events), device time (CUDA-graph replay) and the
+    # plain twin's time at 2304; the bound with the exponential term and the
+    # two-pass floor beside it
+    from retake_tpu_torch.tools.k2_timing import work as k2_work
+    from retake_tpu_torch.tools.k4_timing import graph_ms
+
     k2 = pivot_scores.pivot_score_sums
-    worst, ms = 0.0, {}
-    for valid_len in (2304, 1999):
-        vl = i32(valid_len)
-        got, again = k2(q, kn, vl), k2(q, kn, vl)
-        want = pivot_scores.pivot_score_sums_plain(q, kn, vl)
-        torch.cuda.synchronize()
-        check(torch.equal(got, again), "K2 not bitwise repeatable")
-        err = max_err(got, want)
-        worst = max(worst, err)
-        ms[valid_len] = (cuda_ms(lambda: k2(q, kn, vl), 10),
-                         cuda_ms(lambda: pivot_scores.pivot_score_sums_plain(q, kn, vl), 5))
-        log(f"K2 valid_len={valid_len}: max_abs_err {err:.3e} (tol {K2_TOL}) "
-            f"kernel {ms[valid_len][0]:.3f} ms plain {ms[valid_len][1]:.3f} ms")
-        check(err <= K2_TOL, ("K2", valid_len, err))
+    k2_plain = pivot_scores.pivot_score_sums_plain
+    q7, k7 = bf16(gen, (28, s, d), dev), bf16(gen, (4, s, d), dev)
+    k2_rows = {}
+    for tag, (qs, ks) in (("2b", (q, kn)), ("7b", (q7, k7))):
+        worst = 0.0
+        for valid_len in (2304, 1999):
+            vl = i32(valid_len)
+            got, again = k2(qs, ks, vl), k2(qs, ks, vl)
+            want = k2_plain(qs, ks, vl)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), ("K2 not bitwise repeatable", tag, valid_len))
+            err = max_err(got, want)
+            worst = max(worst, err)
+            log(f"K2 {tag} heads {qs.shape[0]}/{ks.shape[0]} valid_len={valid_len}: "
+                f"max_abs_err {err:.3e} (tol {K2_TOL})")
+            check(err <= K2_TOL, ("K2", tag, valid_len, err))
+        vl = i32(s)
+        t_k, d_k = cuda_ms(lambda: k2(qs, ks, vl), 10), graph_ms(lambda: k2(qs, ks, vl), 50)
+        t_p = cuda_ms(lambda: k2_plain(qs, ks, vl), 5)
+        w = k2_work(qs.shape[0], ks.shape[0], s, d, s)
+        k2_rows[tag] = dict(max_abs_err=worst, ms=t_k, device_ms=d_k, plain_ms=t_p,
+                            bound_ms=w["bound_ms"], exp_ms=w["exp_ms"],
+                            two_pass_floor_ms=w["floor_ms"])
+        log(f"K2 {tag} valid_len={s}: kernel {t_k:.4f} ms (device {d_k:.4f} ms) plain "
+            f"{t_p:.3f} ms; bound {w['bound_ms']:.4f} ms ({w['bound_by']}), exponentials "
+            f"{w['exp_ms']:.4f} ms a pass, two-pass floor {w['floor_ms']:.4f} ms")
+    del got, again, want, q7, k7
     # QK^T over the valid (row, key) square once; q, k in, [KV, S] f32 out
     h = kv * g
+    r2 = k2_rows["2b"]
     records["K2"] = with_bound(dict(
         name="pivot_score_sums", route="cuda",
         source="retake_tpu_torch/csrc/pivot_scores.cu",
         replaces="retake_tpu/ops/pallas/pivot_scores.py:87",
-        max_abs_err=worst, ms=ms[2304][0], plain_ms=ms[2304][1],
-    ), 2 * d * h * s * s, 2 * h * s * d + 2 * kv * s * d + 4 * kv * s)
+        max_abs_err=max(r["max_abs_err"] for r in k2_rows.values()), ms=r2["ms"],
+        device_ms=r2["device_ms"], plain_ms=r2["plain_ms"],
+    ), 2 * d * h * s * s, 2 * h * s * d + 2 * kv * s * d + 4 * kv * s,
+        exp_ms=r2["exp_ms"], two_pass_floor_ms=r2["two_pass_floor_ms"], heads_7b=k2_rows["7b"])
     del q, kn, vn
 
     # K3: ViT attention, 16 heads of 80; error at T=8 and at the main path's
@@ -375,7 +399,6 @@ def phase_kernels(dev, records):
     # dec_start or None, gap_start, gap_filled)
     from retake_tpu_torch.ops import attention
     from retake_tpu_torch.ops.cuda import decode_gapped
-    from retake_tpu_torch.tools.k4_timing import graph_ms
 
     k4 = decode_gapped.decode_gapped_flash_state
     cases = [
@@ -579,6 +602,14 @@ def profile_run(fn, what: str):
         f"({100 * busy / wall:.1f}%, profiler on)")
     for e in kern[:25]:
         log(f"[p]   {e.self_device_time_total / 1e3:10.1f} ms  x{e.count:<6d} {e.key[:90]}")
+    # the port's kernels by name (K2 is three kernels a call; K1 and K4
+    # both modes)
+    fam = {key: sum(e.self_device_time_total for e in kern if any(n in e.key for n in names))
+           for key, names in (("K1", ("flash_prefill_kernel",)),
+                              ("K2", ("row_stats_kernel", "col_sums_kernel", "::merge_kernel")),
+                              ("K3", ("vit_attention_kernel",)),
+                              ("K4", ("decode_gapped_kernel",)))}
+    log("[p]   port kernels: " + ", ".join(f"{k} {v / 1e3:.1f} ms" for k, v in fam.items()))
 
 
 def build_request(cfg, num_frames: int, dev, seed: int):

@@ -14,9 +14,10 @@ Package map:
                     ``quantization.py``: int8 quantizers, weight-only and
                     W8A8 linears
   ops/cuda/         wrappers of the hand-written Hopper kernels (K1 prefill
-                    attention and its int8-KV mode, K2 PivotKV scores, K3 ViT
-                    attention, K4 gap-layout batched decode and its int8-KV
-                    mode), their plain twins and the nvcc build
+                    attention and its int8-KV mode, K2 PivotKV score sums:
+                    row statistics, column sums and a fixed-order merge, K3
+                    ViT attention, K4 gap-layout batched decode and its
+                    int8-KV mode), their plain twins and the nvcc build
   csrc/             the CUDA C++ sources (sm_90a)
   runtime/          static KV cache (bf16 or int8), the chunked-prefill
                     engine, ``serve.py``: the continuous-batching server

@@ -1,5 +1,6 @@
-"""The launch plans of K1, K3 and K4
-(``ops/cuda/{flash_prefill,vit_attention,decode_gapped}.launch_plan``), checked on the CPU.
+"""The launch plans of K1-K4
+(``ops/cuda/{flash_prefill,pivot_scores,vit_attention,decode_gapped}.launch_plan``),
+checked on the CPU.
 
 The kernels cannot run here, but the plans they are launched with are plain
 Python: the grid must cover every (head, query row) (K3: every slice, head
@@ -7,12 +8,15 @@ and patch row), the shared memory must fit one H100 block, the TMA ring
 must have stages to overlap, and the query block must be whole 64-row
 warpgroups. K4's splits must cover every cache column once, two CTAs must
 fit one SM, and its workspace must hold one partial state per split.
+K2's grids must cover every (query head, row), every (query head, key) and
+every (KV head, key) once, and its workspace every row statistic and
+column sum that its launches write.
 """
 
 import numpy as np
 import pytest
 
-from retake_tpu_torch.ops.cuda import decode_gapped, flash_prefill, vit_attention
+from retake_tpu_torch.ops.cuda import decode_gapped, flash_prefill, pivot_scores, vit_attention
 
 # (query heads, KV heads): Qwen2-VL-2B and -7B
 HEADS = [(12, 2), (28, 4)]
@@ -189,3 +193,79 @@ def test_decode_gapped_plan_refuses_what_the_kernel_does_not_take(kw):
     args.update(kw)
     with pytest.raises(ValueError):
         decode_gapped.launch_plan(**args)
+
+
+# K2 shapes: Qwen2-VL-2B and -7B heads; S below one tile, no multiple of
+# the 128-row block, the main path's 2304 and twice that
+K2_S = [40, 300, 2304, 4608]
+
+
+@pytest.mark.parametrize("heads,kv", HEADS)
+@pytest.mark.parametrize("s", K2_S)
+def test_pivot_plan_covers_every_row_and_column_once(heads, kv, s):
+    plan = pivot_scores.launch_plan(heads, kv, s, 128)
+    bq, g = plan["bq"], heads // kv
+    # launch 1: CTA (x, y) takes query head x, rows y * bq .. + bq
+    rows = np.zeros((heads, s), dtype=np.int64)
+    gx, gy = plan["rows"]["grid"]
+    assert gx == heads  # the head index varies fastest
+    for y in range(gy):
+        rows[:, y * bq:min((y + 1) * bq, s)] += 1
+    assert (rows == 1).all()
+    # launch 2: CTA (x, y, z) takes query head z * g + x against keys
+    # y * bq .. + bq of KV head z: every (query head, key) once
+    nx, ny, nz = plan["cols"]["grid"]
+    assert (nx, nz) == (g, kv)
+    pairs = np.zeros((heads, s), dtype=np.int64)
+    for z in range(nz):
+        for x in range(nx):
+            for y in range(ny):
+                pairs[z * g + x, y * bq:min((y + 1) * bq, s)] += 1
+    assert (pairs == 1).all()
+    assert (ny - 1) * bq < s  # no key block starts past the end
+    # launch 3: thread i of CTA (x, z) writes key x * block + i of KV head z
+    mx, mz = plan["merge"]["grid"]
+    keys = np.zeros((kv, s), dtype=np.int64)
+    for x in range(mx):
+        keys[:mz, x * plan["merge"]["block"]:min((x + 1) * plan["merge"]["block"], s)] += 1
+    assert mz == kv and (keys == 1).all()
+
+
+@pytest.mark.parametrize("heads,kv", HEADS)
+@pytest.mark.parametrize("s", K2_S)
+@pytest.mark.parametrize("d", [64, 128])
+def test_pivot_plan_fits_two_ctas_per_sm_and_holds_every_row(heads, kv, s, d):
+    plan = pivot_scores.launch_plan(heads, kv, s, d)
+    assert plan["smem_bytes"] <= 232_448
+    assert 2 * (plan["smem_bytes"] + CTA_RESERVED) <= SM_SHARED
+    assert plan["stages"] >= 2
+    assert plan["bq"] % 64 == 0 and plan["bn"] == plan["bq"]  # one TMA box shape
+    assert plan["block"] == 128 * (plan["bq"] // 64) + 32  # + the producer warp
+    # the workspace holds one row statistic per (query head, row) of every
+    # block launch 1 writes, the padding rows of the last block included,
+    # and one column sum per (query head, key) of every block of launch 2
+    padded = plan["rows"]["grid"][1] * plan["bq"]
+    assert padded == plan["cols"]["grid"][1] * plan["bq"] >= s
+    assert plan["workspace_floats"] == 2 * heads * padded
+
+
+def test_pivot_plan_pins_the_kernels_plan():
+    # 2B: 12/2 heads, S = 2304: 18 blocks of 128 rows / keys; 1024 bytes of
+    # alignment slack, the 128 x 128 bf16 fixed block, 2 stages of a 128 x
+    # 128 bf16 tile and 128 f32 statistics, 5 mbarriers; the merge's 256
+    # keys per CTA
+    plan = pivot_scores.launch_plan(12, 2, 2304, 128)
+    assert plan == dict(rows=dict(grid=(12, 18)), cols=dict(grid=(6, 18, 2)),
+                        merge=dict(grid=(9, 2), block=256),
+                        block=288, bq=128, bn=128, stages=2,
+                        smem_bytes=1024 + 32768 + 2 * (32768 + 512) + 40,
+                        workspace_floats=2 * 12 * 2304)
+
+
+@pytest.mark.parametrize("kw", [dict(d=80), dict(heads=17, num_kv=1), dict(heads=13),
+                                dict(s=0), dict(num_kv=0)])
+def test_pivot_plan_refuses_what_the_kernel_does_not_take(kw):
+    args = dict(heads=12, num_kv=2, s=2304, d=128)
+    args.update(kw)
+    with pytest.raises(ValueError):
+        pivot_scores.launch_plan(**args)

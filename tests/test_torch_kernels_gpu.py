@@ -77,20 +77,45 @@ def test_flash_prefill_kernel_matches_plain(cuda, s, cache_len, valid_len, group
     assert err <= _bf16_tol(want), (err, _bf16_tol(want))
 
 
-@pytest.mark.parametrize("s,valid_len", [(256, 256), (300, 257)])
-def test_pivot_scores_kernel_matches_plain(cuda, s, valid_len):
+# K2 cases (KV, G, S, valid_len, D): 2B (12/2) and 7B (28/4) heads at the
+# main path's S = 2304, full and short; D = 64; G = 1 and G = 16 (two heads
+# per CTA of an 8-CTA cluster); S below one 64-row tile (40); S no multiple
+# of 64 or 128 (300) with valid_len 257; valid_len = 1
+K2_CASES = [(2, 6, 2304, 2304, 128), (2, 6, 2304, 1999, 128), (4, 7, 2304, 2304, 128),
+            (4, 7, 2304, 1999, 128), (2, 6, 300, 257, 64), (2, 6, 2304, 1999, 64),
+            (3, 1, 300, 257, 128), (2, 16, 300, 257, 128), (1, 16, 2304, 1999, 64),
+            (2, 6, 40, 40, 128), (2, 6, 40, 17, 64), (2, 6, 300, 257, 128),
+            (2, 6, 256, 256, 128), (2, 6, 300, 1, 128), (4, 7, 40, 1, 64)]
+
+
+@pytest.mark.parametrize("kv,g,s,valid_len,d", K2_CASES)
+def test_pivot_scores_kernel_matches_plain(cuda, kv, g, s, valid_len, d):
     # same bf16 inputs, fp32 math on both sides: only summation order and
-    # exp2 vs exp differ -> 1e-4 relative
-    rng = np.random.default_rng(s + valid_len)
-    kv, g, d = 2, 6, 128
+    # exp2 vs exp differ -> 1e-4 relative. Every row holds N(0, 1) draws,
+    # those past valid_len too, so the whole tiles TMA brings in must be
+    # masked (keys) or weigh nothing (query rows)
+    rng = np.random.default_rng(kv * g + s + valid_len + d)
     q, k = _bf16(rng, (kv * g, s, d), cuda), _bf16(rng, (kv, s, d), cuda)
     vl = _i32(valid_len, cuda)
+    n0 = pivot_scores.pivot_score_sums.launches
     got = pivot_scores.pivot_score_sums(q, k, vl)
     again = pivot_scores.pivot_score_sums(q, k, vl)
     want = pivot_scores.pivot_score_sums_plain(q, k, vl)
     torch.cuda.synchronize()
+    assert pivot_scores.pivot_score_sums.launches == n0 + 2
     assert torch.equal(got, again)  # fixed-order reductions: bitwise repeatable
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert (got[:, valid_len:] == 0).all()
+
+
+@pytest.mark.parametrize("h,kv,d", [(12, 2, 80), (17, 1, 128)])
+def test_pivot_scores_raises_on_what_the_kernel_does_not_take(cuda, h, kv, d):
+    # D = 80 is no kernel instance; 17 query heads per KV head exceed
+    # MAX_GROUP: a ValueError, never the plain twin
+    q = torch.zeros((h, 64, d), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((kv, 64, d), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        pivot_scores.pivot_score_sums(q, k, _i32(64, cuda))
 
 
 # K3 cases (T, N, S, D): 576 = a 448x252 frame (the main path's 16 heads
