@@ -24,7 +24,9 @@ Phases (each prints; any failure raises and exits non-zero):
      K1 at four cache fill levels;
      K2 at 2B and 7B heads; K2's
      and K4's device time per call
-     (CUDA-graph replay)
+     (CUDA-graph replay); K1, K2
+     and K3 at the shapes of
+     phases 12-16
   4. end to end, with kernel      10. 7B W8A8 + int8-KV request: launch
      launch counts                    counts, bit-exact repeat (cache and
   5. the same request again,          scales), kernel vs plain path
@@ -33,6 +35,20 @@ Phases (each prints; any failure raises and exits non-zero):
   6. kernel path vs plain path        scale planes, K4-int8 launch counts
      end to end (first logits,
      entries PivotKV kept)
+ 12. prompt-guided compression (the question in every video chunk): as
+     4-6, and the planned cache pre + sum(keep) + post
+ 13. images: two images of different grids alone, and image + video (64
+     frames) + image; K3 launches per image, kernel vs plain path
+ 14. reuse across three questions: encode_video then
+     generate(video_features=), encode_prefix then generate(prefix=), each
+     bit-exact against inline (tokens, first logits), TTFT beside inline's,
+     PrefixMismatch for another prompt prefix; after phase 11 the same
+     prefix reuse on 7B (int8 KV) at 64 frames
+ 15. prompt-lookup speculative decode: tokens per verify step, K1 launches,
+     token agreement with greedy
+ 16. sampling: a seed repeats bit-exactly, temperature 1e-4 gives greedy,
+     top-k / top-p run; sampled generate_batch (3 requests) and the phase-7
+     server mix sampled, with K4 launches and agreement with sequential
 
 The last two stdout lines are the kernels record and
 ``{"ok": true, "device": {...}}``; before them, the card's name and power
@@ -40,8 +56,8 @@ limit as nvidia-smi prints them.
 
 Usage:  python3 chip_smoke.py [--frames 512] [--seed 0] [--profile]
 
-``--frames`` sets the single request of phases 4-5 and 10 (2048 = the
-bench geometry). ``--profile`` adds one more warm request (2B and 7B) and
+``--frames`` sets the single request of phases 4-5, 10, 12, 14-16 (2048 =
+the bench geometry). ``--profile`` adds one more warm request (2B and 7B) and
 one more batched decode step under torch.profiler and prints the CUDA
 kernels by device time and the device-busy share of each.
 """
@@ -141,6 +157,22 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # fill levels one 2048-frame request's chunks walk through (K1 timing)
 K1_FILLS = (0, 8192, 20000, 32000)
+# the shapes phases 12-16 give the kernels: a prompt-guided block is a
+# 32-frame chunk (2304 rows) with the prompt's last text segment after it
+# (the vision-end token and the 48-token question: 49 rows; a short last
+# chunk: 1999 video rows); a spec-decode verify chunk is draft + 1 = 9
+# rows; still images are one (1, h, w) grid each: 448x448 (32x32) and
+# 644x364 (46x26) in the requests, 36x50 (S = 1800, no multiple of K3's
+# 192-row block) beside 32x32 in phase 3
+PG_ROWS, PG_SHORT, SPEC_ROWS = 2304 + 49, 1999 + 49, 8 + 1
+IMAGE_GRIDS = [(1, 32, 32), (1, 46, 26)]
+IMAGE_K3_GRIDS = [(32, 32), (36, 50)]
+SAMPLED_BATCH_FRAMES = (64, 128, 256)  # phase 16's sampled generate_batch
+# speculative decode against vanilla greedy on the same prefill: the verify
+# chunk (K1) and the s = 1 decode round differently, so tokens may part at
+# near-ties (reference engine.py:364-368); the bound is the token agreement
+# tools/gate_serve_decode_stage.py:135 requires of two decode paths
+SPEC_MIN_AGREEMENT = 0.7
 
 
 def log(msg: str) -> None:
@@ -623,12 +655,25 @@ def build_request(cfg, num_frames: int, dev, seed: int):
         + [cfg.vision_end_token_id] + post,
         dtype=np.int64,
     )
+    patches = random_patches(cfg, grid_t * GRID_H * GRID_W, dev, seed)
+    return ids, patches, np.array([[grid_t, GRID_H, GRID_W]])
+
+
+def random_patches(cfg, n: int, dev, seed: int) -> torch.Tensor:
+    """``n`` bf16 patch rows of pixel-like values, drawn on the card."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    raw = torch.randint(0, 255, (grid_t * GRID_H * GRID_W, cfg.vision.patch_input_dim),
-                        generator=gen, device=dev, dtype=torch.int32)
-    patches = ((raw.to(torch.float32) - 127.5) / 64.0).to(torch.bfloat16)
-    return ids, patches, np.array([[grid_t, GRID_H, GRID_W]])
+    raw = torch.randint(0, 255, (n, cfg.vision.patch_input_dim), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return ((raw.to(torch.float32) - 127.5) / 64.0).to(torch.bfloat16)
+
+
+def compressing_64(rd: dict) -> dict:
+    """``rd`` with PivotKV compressing a 64-frame request (max_input_length
+    below its ~4700 tokens)."""
+    rd = json.loads(json.dumps(rd))
+    rd["longvideo_kwargs"]["kvcache_compression_kwargs"]["max_input_length"] = 3000
+    return rd
 
 
 def all_kernels():
@@ -651,9 +696,10 @@ def read_counts() -> dict:
     return {key: fn.launches for key, fn in all_kernels().items()}
 
 
-def phase_serve(cfg, model, rt, dev, seed: int, tag: str = "7") -> dict:
+def phase_serve(cfg, model, rt, dev, seed: int, tag: str = "7") -> tuple:
     """ContinuousServer.run over SERVE_REQUESTS with decode_attn_impl left at
-    "auto"; returns the kernels' launch counts of this run (keyed K1..K4-int8).
+    "auto"; returns the kernels' launch counts of this run (keyed K1..K4-int8)
+    and each request with its served tokens.
     With an int8 KV cache the int8 modes of K1 and K4 must run, the bf16
     ones not at all."""
     from retake_tpu_torch.runtime.engine import Qwen2VLEngine
@@ -710,8 +756,9 @@ def phase_serve(cfg, model, rt, dev, seed: int, tag: str = "7") -> dict:
     log(f"[{tag}] served decode: {n_dec} tokens in {wall:.3f} s = {n_dec / wall:.2f} tok/s "
         f"(whole run, prefills included); TTFT p50 {np.percentile(ttft, 50):.3f} s, p95 "
         f"{np.percentile(ttft, 95):.3f} s; peak memory {peak / 2**30:.2f} GiB")
+    streams = [(req, r.tokens) for req, r in zip(reqs, results)]
     del server, engine, results
-    return launches
+    return launches, streams
 
 
 def phase_decode_step(cfg, model, rt, dev, seed: int, profile: bool) -> None:
@@ -777,12 +824,18 @@ def phase_request(cfg, model, rd: dict, dev, args, tags, rel_tol, min_kept) -> d
     ids, patches, grid = build_request(cfg, args.frames, dev, args.seed)
     chunk_tokens = engine.get_chunk_tokens(grid[0])
     ratio = rt.compression_ratio_for(len(ids))
-    plan, final_len, _ = plan_chunks(ids, cfg.video_token_id, chunk_tokens, ratio, ratio < 1.0)
+    compress = rt.kvcache_compression and ratio < 1.0
+    guided = rt.kv.prompt_guided_compression and compress
+    plan, final_len, _ = plan_chunks(ids, cfg.video_token_id, chunk_tokens, ratio, compress, guided)
     n_video_chunks = sum(p["kind"] == "video" for p in plan)
     n_vit_chunks = -(-int(grid[0][0]) // rt.frame_chunk_size)
+    text_steps = [p["keep"] for p in plan if p["kind"] == "text"]
+    question = f", each with the {plan[-1]['valid']}-token question" if guided else ""
     log(f"[{t4}] request: {args.frames} frames, grid {grid[0].tolist()}, {len(ids)} tokens, "
-        f"ratio {ratio:.4f}, {len(plan)} prefill steps ({n_video_chunks} video chunks), "
-        f"planned cache {final_len}; quantization {rt.quantization}, kv cache "
+        f"ratio {ratio:.4f}, {len(plan)} prefill steps ({n_video_chunks} video chunks{question}), "
+        f"planned cache {final_len} = pre {text_steps[0]} + sum(keep) "
+        f"{sum(p['keep'] for p in plan if p['kind'] == 'video')} + post {text_steps[-1]}; "
+        f"quantization {rt.quantization}, kv cache "
         f"{rt.kv_cache_dtype or 'bf16'}, W8A8 linears {engine.act_quant and model.int8}")
 
     torch.cuda.reset_peak_memory_stats()
@@ -836,26 +889,10 @@ def phase_request(cfg, model, rd: dict, dev, args, tags, rel_tol, min_kept) -> d
     torch.cuda.empty_cache()
 
     # kernel path vs plain path, 64 frames, PivotKV compressing every video
-    # chunk (max_input_length below the 64-frame input)
+    # chunk
     ids6, patches6, grid6 = build_request(cfg, 64, dev, args.seed + 1)
-    rd6 = json.loads(json.dumps(rd))
-    rd6["longvideo_kwargs"]["kvcache_compression_kwargs"]["max_input_length"] = 3000
-    out = {}
-    for impl in ("pallas", "xla"):
-        rd6["attn_implementation"] = impl
-        eng = Qwen2VLEngine(cfg, model, RetakeConfig.from_dict(rd6), device=dev)
-        out[impl] = eng.generate(ids6, patches6, grid6, max_new_tokens=MAX_NEW_TOKENS)
-    a, b = out["pallas"], out["xla"]
-    diff = float(np.abs(a.first_logits - b.first_logits).max())
-    rel = diff / float(np.abs(b.first_logits).max())
-    check(a.cache_fill == b.cache_fill, (a.cache_fill, b.cache_fill))
-    kept = kept_agreement(a.cache, b.cache, a.cache_fill)
-    log(f"[{t6}] 64 frames, {len(ids6)} tokens, cache {a.cache_fill}: first-token logits "
-        f"max|diff| {diff:.4e} (rel {rel:.4f}, bound {rel_tol}); kept entries "
-        f"in common {kept:.4f} (bound {min_kept}); tokens "
-        f"{a.tokens[:4].tolist()} / {b.tokens[:4].tolist()}")
-    check(rel <= rel_tol and kept >= min_kept, (rel, kept))
-    del out, a, b, eng
+    kernel_vs_plain(cfg, model, compressing_64(rd), dev, t6, "64 frames", rel_tol, min_kept,
+                    input_ids=ids6, pixel_values_videos=patches6, video_grid_thw=grid6)
     torch.cuda.empty_cache()
     return launches
 
@@ -893,6 +930,341 @@ def phase_weight_only(cfg, model, dev, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_kernels_new_shapes(dev, records):
+    """The shapes phases 12-16 give the kernels: K1 and K2 at the
+    prompt-guided block (S = 2304 + 49 rows, a full and a short last chunk),
+    K1 at a spec-decode verify chunk (S = 9) over a ~32k cache, K3 at T = 1
+    for a 448x448 image (S = 1024) and a 36x50 grid (S = 1800, no multiple of
+    the kernel's 192-row block). Error against the plain twin, bitwise
+    repeat, CUDA-event medians, bound and the library call's time, added to
+    each kernel's record under ``new_shapes``."""
+    import torch.nn.functional as F
+
+    from retake_tpu_torch.models.qwen2_vl.vision import vision_rotary_tables
+    from retake_tpu_torch.ops.cuda import flash_prefill, pivot_scores, vit_attention
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    kv, g, d, budget = 2, 6, 128, 40960
+    h = kv * g
+    k1, k1_plain = flash_prefill.flash_prefill_attention, flash_prefill.flash_prefill_attention_plain
+    k2, k2_plain = pivot_scores.pivot_score_sums, pivot_scores.pivot_score_sums_plain
+    kc, vc = bf16(gen, (kv, budget, d), dev), bf16(gen, (kv, budget, d), dev)
+    for key in ("K1", "K2", "K3"):
+        records[key]["new_shapes"] = []
+    # (what, S, (cache_len, valid_len) error cases, the timed case)
+    k1_cases = [("prompt-guided block", PG_ROWS, [(0, PG_ROWS), (20000, PG_ROWS),
+                                                (20000, PG_SHORT)], (20000, PG_ROWS)),
+                ("spec-decode verify chunk", SPEC_ROWS, [(0, SPEC_ROWS), (31999, SPEC_ROWS),
+                                                       (32000, SPEC_ROWS)], (32000, SPEC_ROWS))]
+    for what, s, cases, (cl_t, vl_t) in k1_cases:
+        q = bf16(gen, (h, s, d), dev)
+        kn, vn = bf16(gen, (kv, s, d), dev), bf16(gen, (kv, s, d), dev)
+        worst = 0.0
+        for cache_len, valid_len in cases:
+            cl, vl = i32(cache_len), i32(valid_len)
+            got, again = k1(q, kc, vc, cl, kn, vn, vl), k1(q, kc, vc, cl, kn, vn, vl)
+            want = k1_plain(q, kc, vc, cl, kn, vn, vl)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), ("K1 not bitwise repeatable", what, cache_len))
+            err, tol = max_err(got, want), bf16_tol(want)
+            worst = max(worst, err)
+            log(f"K1 {what} S={s} cache_len={cache_len} valid_len={valid_len}: max_abs_err "
+                f"{err:.3e} (tol {tol:.3e})")
+            check(err <= tol, ("K1", what, cache_len, valid_len, err, tol))
+        cl, vl = i32(cl_t), i32(vl_t)
+        t_k = cuda_ms(lambda: k1(q, kc, vc, cl, kn, vn, vl), 20)
+        t_p = cuda_ms(lambda: k1_plain(q, kc, vc, cl, kn, vn, vl), 3, 1)
+        lib, backend = sdpa_call(q, kc, vc, kn, vn, cl_t, vl_t)
+        t_l = cuda_ms(lib, 20)
+        del lib
+        flops, nbytes = k1_work(h, kv, s, d, cl_t, vl_t, False)
+        b, by = bound(flops, nbytes)
+        log(f"K1 {what} S={s} cache_len={cl_t}: kernel {t_k:.4f} ms plain {t_p:.3f} ms SDPA "
+            f"({backend}) {t_l:.4f} ms; bound {b:.4f} ms ({by})")
+        records["K1"]["new_shapes"].append(dict(
+            path=what, s=s, cache_len=cl_t, valid_len=vl_t, max_abs_err=worst, ms=t_k,
+            plain_ms=t_p, bound_ms=b, bound_by=by, library_ms=t_l, library_backend=backend))
+        if s == PG_ROWS:  # K2 scores the same block's q / k
+            worst = 0.0
+            for valid_len in (PG_ROWS, PG_SHORT):
+                vl = i32(valid_len)
+                got, again, want = k2(q, kn, vl), k2(q, kn, vl), k2_plain(q, kn, vl)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again), ("K2 not bitwise repeatable", valid_len))
+                err = max_err(got, want)
+                worst = max(worst, err)
+                log(f"K2 {what} S={s} valid_len={valid_len}: max_abs_err {err:.3e} (tol {K2_TOL})")
+                check(err <= K2_TOL, ("K2", what, valid_len, err))
+            vl = i32(s)
+            t_k, t_p = cuda_ms(lambda: k2(q, kn, vl), 20), cuda_ms(lambda: k2_plain(q, kn, vl), 5)
+            b, by = bound(2 * d * h * s * s, 2 * h * s * d + 2 * kv * s * d + 4 * kv * s)
+            log(f"K2 {what} S={s}: kernel {t_k:.4f} ms plain {t_p:.3f} ms; bound {b:.4f} ms ({by})")
+            records["K2"]["new_shapes"].append(dict(
+                path=what, s=s, valid_len=s, max_abs_err=worst, ms=t_k, plain_ms=t_p,
+                bound_ms=b, bound_by=by, library_ms=None))
+        del q, kn, vn, got, again, want
+    del kc, vc
+    k3, k3_plain = vit_attention.vit_attention_qkv, vit_attention.vit_attention_qkv_plain
+    for gh, gw in IMAGE_K3_GRIDS:
+        s = gh * gw
+        cos_np, sin_np = vision_rotary_tables(gh, gw, 80, 2)
+        cos, sin = torch.from_numpy(cos_np).to(dev), torch.from_numpy(sin_np).to(dev)
+        qkv = bf16(gen, (1, s, 16, 3, 80), dev)
+        got, again, want = k3(qkv, cos, sin), k3(qkv, cos, sin), k3_plain(qkv, cos, sin)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), ("K3 not bitwise repeatable", s))
+        err, tol = max_err(got, want), bf16_tol(want)
+        log(f"K3 image T=1 grid {gh}x{gw} S={s}: max_abs_err {err:.3e} (tol {tol:.3e})")
+        check(err <= tol, ("K3", s, err, tol))
+        t_k, t_p = cuda_ms(lambda: k3(qkv, cos, sin), 20), cuda_ms(lambda: k3_plain(qkv, cos, sin), 5)
+        q3, k3_, v3 = qkv.unbind(dim=3)
+        q3, k3_ = vit_attention._rope_fp32(q3, cos, sin), vit_attention._rope_fp32(k3_, cos, sin)
+        q3, k3_, v3 = (x.transpose(1, 2).contiguous() for x in (q3, k3_, v3))
+        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(q3, k3_, v3), 20)
+        b, by = bound(4 * 16 * s * s * 80, 2 * s * 16 * 4 * 80 + 2 * 4 * s * 80)
+        log(f"K3 image S={s}: kernel {t_k:.4f} ms plain {t_p:.3f} ms SDPA on pre-rotated q/k "
+            f"{t_l:.4f} ms; bound {b:.4f} ms ({by})")
+        records["K3"]["new_shapes"].append(dict(
+            path=f"image {gh}x{gw}", t=1, s=s, max_abs_err=err, ms=t_k, plain_ms=t_p,
+            bound_ms=b, bound_by=by, library_ms=t_l))
+        del qkv, got, again, want, q3, k3_, v3
+    torch.cuda.empty_cache()
+
+
+def token_agreement(a, b) -> float:
+    """Positions where two streams agree over the longer one's length
+    (tools/gate_serve_decode_stage.py's token_agreement)."""
+    n = min(len(a), len(b))
+    return float(np.sum(np.asarray(a[:n]) == np.asarray(b[:n]))) / max(len(a), len(b), 1)
+
+
+def kernel_vs_plain(cfg, model, rd, dev, tag, what, rel_tol, min_kept, **request):
+    """The request through the kernels (launch counts read around it) and
+    through the plain twins: (kernel result, plain result, launches); the
+    first logits within ``rel_tol`` (relative to the largest), the
+    PivotKV-kept entries in common at least ``min_kept``."""
+    from retake_tpu_torch.runtime.engine import Qwen2VLEngine
+    from retake_tpu_torch.utils.config import RetakeConfig
+
+    out, launches = {}, None
+    for impl in ("pallas", "xla"):
+        eng = Qwen2VLEngine(cfg, model, RetakeConfig.from_dict(dict(rd, attn_implementation=impl)),
+                            device=dev)
+        zero_counts()
+        out[impl] = eng.generate(**request, max_new_tokens=MAX_NEW_TOKENS)
+        if impl == "pallas":
+            launches = read_counts()
+    a, b = out["pallas"], out["xla"]
+    for r in (a, b):
+        check(np.isfinite(r.first_logits).all() and len(r.tokens) >= 1
+              and ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all(), (what, r.tokens))
+        check(r.cache_fill == r.cache_len, (what, r.cache_fill, r.cache_len))
+    rel = float(np.abs(a.first_logits - b.first_logits).max() / np.abs(b.first_logits).max())
+    check(a.cache_fill == b.cache_fill, (a.cache_fill, b.cache_fill))
+    kept = kept_agreement(a.cache, b.cache, a.cache_fill)
+    log(f"[{tag}] {what}: {request['input_ids'].shape[0]} tokens, cache {a.cache_fill}, TTFT "
+        f"{a.prefill_seconds:.3f} s; launches {launches}; kernel vs plain: first logits rel "
+        f"max|diff| {rel:.4f} (bound {rel_tol}), kept entries in common {kept:.4f} (bound "
+        f"{min_kept}); tokens {a.tokens[:4].tolist()} / {b.tokens[:4].tolist()}")
+    check(rel <= rel_tol and kept >= min_kept, (what, rel, kept))
+    return a, b, launches
+
+
+def phase_images(cfg, model, dev, seed: int) -> dict:
+    """An image-only request (two images of different grids) and an image +
+    video + image request (64 frames, PivotKV compressing the video span):
+    K3 launches once per ViT block per image and per video chunk, kernel
+    path vs plain path. Returns the launch counts of the mixed request."""
+    m2 = cfg.vision.spatial_merge_size**2
+    vs, ve, img = cfg.vision_start_token_id, cfg.vision_end_token_id, cfg.image_token_id
+    pixels = random_patches(cfg, sum(t * h * w for t, h, w in IMAGE_GRIDS), dev, seed + 30)
+    grids = np.asarray(IMAGE_GRIDS)
+    n_img = [t * h * w // m2 for t, h, w in IMAGE_GRIDS]
+    ids_v, patches, grid = build_request(cfg, 64, dev, seed + 31)
+    pre, video, post = ids_v[:16], ids_v[16:-48], ids_v[-48:]
+    spans = [np.array([vs] + [img] * n + [ve]) for n in n_img]
+    rd = compressing_64(RETAKE_CONFIG)
+    tols = (E2E_REL_LOGIT_TOL, E2E_MIN_KEPT_AGREEMENT)
+    depth = cfg.vision.depth
+    only = np.concatenate([pre, spans[0], spans[1], post]).astype(np.int64)
+    _, _, n = kernel_vs_plain(cfg, model, rd, dev, "13", "image-only request (grids "
+                              f"{[list(g) for g in IMAGE_GRIDS]})", *tols, input_ids=only,
+                              pixel_values=pixels, image_grid_thw=grids)
+    check(n["K3"] == depth * len(IMAGE_GRIDS) and n["K1"] == cfg.num_hidden_layers
+          and n["K2"] == 0, n)
+    mixed = np.concatenate([pre, spans[0], video, spans[1], post]).astype(np.int64)
+    a, _, n = kernel_vs_plain(cfg, model, rd, dev, "13", "image + video (64 frames) + image",
+                              *tols, input_ids=mixed, pixel_values=pixels, image_grid_thw=grids,
+                              pixel_values_videos=patches, video_grid_thw=grid)
+    n_vit = -(-int(grid[0][0]) // rd["longvideo_kwargs"]["frame_chunk_size"])
+    check(n["K3"] == depth * (len(IMAGE_GRIDS) + n_vit) and n["K2"] > 0, n)
+    check(a.cache_len < len(mixed), ("PivotKV", a.cache_len, len(mixed)))
+    torch.cuda.empty_cache()
+    return n
+
+
+def phase_reuse(cfg, model, rd, dev, frames: int, seed: int, tag: str, features: bool) -> None:
+    """Three questions about one video: inline ``generate``, then (with
+    ``features``) ``generate(video_features=...)`` after one
+    ``encode_video``, then ``generate(prefix=...)`` after one
+    ``encode_prefix``; tokens and first logits bit-exact against inline,
+    no K3 launch when reusing, only the question's K1 launches with a
+    prefix; a question with another prompt prefix raises PrefixMismatch."""
+    from retake_tpu_torch.runtime.engine import PrefixMismatch, Qwen2VLEngine
+    from retake_tpu_torch.utils.config import RetakeConfig
+
+    rt = RetakeConfig.from_dict(rd)
+    engine = Qwen2VLEngine(cfg, model, rt, device=dev)
+    k1 = "K1-int8" if rt.kv_cache_dtype == "int8" else "K1"
+    ids0, patches, grid = build_request(cfg, frames, dev, seed)
+    rng = np.random.default_rng(seed + 40)
+    questions = [ids0] + [np.concatenate([ids0[:-48], rng.integers(10, 1000, size=48)])
+                          for _ in range(2)]
+    inline = [engine.generate(q, patches, grid, max_new_tokens=MAX_NEW_TOKENS) for q in questions]
+
+    def held(res, ref, what, i, launches):
+        same = (np.array_equal(res.tokens, ref.tokens)
+                and np.array_equal(res.first_logits, ref.first_logits))
+        log(f"[{tag}] {what} question {i}: TTFT {res.prefill_seconds:.3f} s (inline "
+            f"{ref.prefill_seconds:.3f} s), decode {res.decode_seconds:.3f} s; bit-exact vs "
+            f"inline {same}; launches {launches}")
+        check(same, (what, i, res.tokens[:4], ref.tokens[:4]))
+
+    if features:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = engine.encode_video(patches, grid)
+        torch.cuda.synchronize()
+        log(f"[{tag}] encode_video ({frames} frames): {time.perf_counter() - t0:.3f} s")
+        for i, (q, ref) in enumerate(zip(questions, inline)):
+            zero_counts()
+            res = engine.generate(q, video_features=feats, max_new_tokens=MAX_NEW_TOKENS)
+            n = read_counts()
+            held(res, ref, "video_features", i, n)
+            check(n["K3"] == 0 and n[k1] > 0, n)
+        del feats
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefix = engine.encode_prefix(questions[0], patches, grid, max_new_tokens=MAX_NEW_TOKENS)
+    torch.cuda.synchronize()
+    log(f"[{tag}] encode_prefix ({frames} frames): {time.perf_counter() - t0:.3f} s, cache "
+        f"{prefix.final_len} of budget {prefix.budget} ({'int8' if prefix.cache.quantized else 'bf16'})")
+    check(prefix.cache.quantized == (rt.kv_cache_dtype == "int8"), "prefix cache dtype")
+    for i, (q, ref) in enumerate(zip(questions, inline)):
+        zero_counts()
+        res = engine.generate(q, prefix=prefix, max_new_tokens=MAX_NEW_TOKENS)
+        n = read_counts()
+        held(res, ref, "prefix", i, n)
+        check(n[k1] == cfg.num_hidden_layers and n["K2"] == n["K3"] == 0, n)
+    bad = questions[1].copy()
+    bad[0] += 1
+    try:
+        engine.generate(bad, prefix=prefix, max_new_tokens=MAX_NEW_TOKENS)
+        check(False, "a question with another prompt prefix was not refused")
+    except PrefixMismatch as e:
+        log(f"[{tag}] another prompt prefix: PrefixMismatch ({e})")
+    del prefix, engine, inline
+    torch.cuda.empty_cache()
+
+
+def phase_spec(cfg, model, dev, args) -> tuple:
+    """Prompt-lookup speculative decode on the phase-4 request: tokens per
+    verify step m / n_it, K1 launches (one per layer per prefill step and
+    per verify step), token agreement with vanilla greedy over the same
+    prefill (>= SPEC_MIN_AGREEMENT). Returns (the greedy tokens, launches)."""
+    from retake_tpu_torch.runtime.engine import Qwen2VLEngine, plan_chunks
+    from retake_tpu_torch.utils.config import RetakeConfig
+
+    ids, patches, grid = build_request(cfg, args.frames, dev, args.seed)
+    greedy = Qwen2VLEngine(cfg, model, RetakeConfig.from_dict(RETAKE_CONFIG), device=dev).generate(
+        ids, patches, grid, max_new_tokens=MAX_NEW_TOKENS)
+    rt = RetakeConfig.from_dict(dict(RETAKE_CONFIG, spec_decode=True))
+    engine = Qwen2VLEngine(cfg, model, rt, device=dev)
+    ratio = rt.compression_ratio_for(len(ids))
+    plan, _, _ = plan_chunks(ids, cfg.video_token_id, engine.get_chunk_tokens(grid[0]), ratio,
+                             ratio < 1.0)
+    zero_counts()
+    res = engine.generate(ids, patches, grid, max_new_tokens=MAX_NEW_TOKENS)
+    n = read_counts()
+    m, n_it = res.spec_steps
+    agree = token_agreement(res.tokens, greedy.tokens)
+    per = lambda r: 1e3 * r.decode_seconds / max(len(r.tokens) - 1, 1)  # noqa: E731
+    log(f"[15] spec decode (ngram {rt.spec_ngram}, draft {rt.spec_draft}): {m} tokens in {n_it} "
+        f"verify steps = {m / n_it:.3f} tokens a step; launches {n}; decode {per(res):.2f} "
+        f"ms/token vs greedy {per(greedy):.2f}; agreement with greedy {agree:.4f} (bound "
+        f"{SPEC_MIN_AGREEMENT}); tokens {res.tokens.tolist()} / {greedy.tokens.tolist()}")
+    check(n["K1"] == cfg.num_hidden_layers * (len(plan) + n_it), (n, len(plan), n_it))
+    check(np.array_equal(res.first_logits, greedy.first_logits), "spec first logits")
+    check(agree >= SPEC_MIN_AGREEMENT, agree)
+    del engine
+    return greedy.tokens, n
+
+
+def phase_sampling(cfg, model, dev, args, greedy_tokens) -> tuple:
+    """Sampled decode: a seed repeats bit-exactly, temperature 1e-4 gives the
+    greedy tokens, top-k 5 with top-p 0.9 runs; sampled generate_batch over
+    three requests and the phase-7 server mix with do_sample, each with K4
+    launch counts and each request's agreement with its sequential sampled
+    run (reported: K4 and the plain sequential decode round differently).
+    Returns (batch launches, server launches)."""
+    from retake_tpu_torch.runtime.engine import Qwen2VLEngine
+    from retake_tpu_torch.utils.config import RetakeConfig
+
+    def engine_for(**kw):
+        rd = dict(RETAKE_CONFIG, do_sample=True, **kw)
+        return Qwen2VLEngine(cfg, model, RetakeConfig.from_dict(rd), device=dev)
+
+    ids, patches, grid = build_request(cfg, args.frames, dev, args.seed)
+    eng = engine_for(seed=7)
+    a = eng.generate(ids, patches, grid, max_new_tokens=MAX_NEW_TOKENS)
+    b = eng.generate(ids, patches, grid, max_new_tokens=MAX_NEW_TOKENS)
+    same = np.array_equal(a.tokens, b.tokens) and np.array_equal(a.first_logits, b.first_logits)
+    cold = engine_for(seed=3, temperature=1e-4).generate(ids, patches, grid,
+                                                         max_new_tokens=MAX_NEW_TOKENS)
+    filt = engine_for(seed=1, top_k=5, top_p=0.9).generate(ids, patches, grid,
+                                                           max_new_tokens=MAX_NEW_TOKENS)
+    log(f"[16] sampled (seed 7, T 1.0): {a.tokens.tolist()}, repeat bit-exact {same}; T 1e-4: "
+        f"{cold.tokens.tolist()} vs greedy {greedy_tokens.tolist()}; top-k 5 top-p 0.9: "
+        f"{filt.tokens.tolist()}; decode {1e3 * a.decode_seconds / max(len(a.tokens) - 1, 1):.2f} "
+        f"ms/token")
+    check(same, "sampled repeat")
+    check(np.array_equal(cold.tokens, greedy_tokens), "temperature 1e-4 != greedy")
+    check(len(filt.tokens) >= 1 and ((filt.tokens >= 0) & (filt.tokens < cfg.vocab_size)).all(),
+          filt.tokens)
+
+    reqs = []
+    for i, frames in enumerate(SAMPLED_BATCH_FRAMES):
+        r_ids, r_patches, r_grid = build_request(cfg, frames, dev, args.seed + 50 + i)
+        reqs.append(dict(input_ids=r_ids, pixel_values_videos=r_patches, video_grid_thw=r_grid))
+    seq = [eng.generate(**r, max_new_tokens=MAX_NEW_TOKENS) for r in reqs]
+    zero_counts()
+    t0 = time.perf_counter()
+    batch = eng.generate_batch(reqs, max_new_tokens=MAX_NEW_TOKENS)
+    wall = time.perf_counter() - t0
+    nb = read_counts()
+    agree = [token_agreement(x.tokens, y.tokens) for x, y in zip(batch, seq)]
+    log(f"[16] sampled generate_batch ({list(SAMPLED_BATCH_FRAMES)} frames) in {wall:.3f} s: "
+        f"launches {nb}; agreement with sequential {agree}")
+    steps = max(len(x.tokens) for x in batch) - 1
+    check(nb["K4"] >= cfg.num_hidden_layers * steps > 0, (nb, steps))
+    check(all(np.array_equal(x.tokens[:1], y.tokens[:1]) for x, y in zip(batch, seq)),
+          "sampled first tokens")
+    del seq, batch
+
+    serve, streams = phase_serve(cfg, model, eng.retake, dev, args.seed, tag="16")
+    agree = []
+    for req, toks in streams:
+        ref = eng.generate(**{k: v for k, v in req.items() if k != "max_new_tokens"},
+                           max_new_tokens=req.get("max_new_tokens", SERVE_KW["max_new_tokens"]))
+        agree.append(round(token_agreement(toks, ref.tokens), 4))
+    log(f"[16] sampled server: agreement of each request with its sequential run {agree}")
+    del eng
+    torch.cuda.empty_cache()
+    return nb, serve
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=512, help="raw video frames (2048 = bench)")
@@ -900,6 +1272,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="profile one more warm request and decode step")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     # 1. device and environment
     if not torch.cuda.is_available():
@@ -934,6 +1307,7 @@ def main() -> int:
     records = {}
     phase_kernels(dev, records)
     phase_kernels_int8(dev, records)
+    phase_kernels_new_shapes(dev, records)
     log("[3] kernels match their plain versions")
 
     # 4-6. 2B in bf16: one request, its repeat, kernel vs plain path
@@ -947,7 +1321,8 @@ def main() -> int:
                              E2E_REL_LOGIT_TOL, E2E_MIN_KEPT_AGREEMENT)
 
     # 7. the continuous-batching server: six staggered requests, 4 slots
-    serve_launches = phase_serve(cfg, model, rt, dev, args.seed)
+    # [0]: the launches; the returned requests would keep their patches on the card
+    serve_launches = phase_serve(cfg, model, rt, dev, args.seed)[0]
     torch.cuda.empty_cache()
 
     # 8. one batched decode step over three real prefills, kernel vs plain
@@ -955,6 +1330,22 @@ def main() -> int:
 
     # 9. weight-only int8 against bf16 on the same 2B weights
     phase_weight_only(cfg, model, dev, args.seed)
+
+    # 12-16. the per-question paths on the same 2B model: prompt-guided
+    # compression, images, reuse across questions, speculative decode,
+    # sampling. Each path's launches are read around it
+    t_new = time.perf_counter()
+    paths = {"4": launches, "7": serve_launches}
+    rd12 = json.loads(json.dumps(RETAKE_CONFIG))
+    rd12["longvideo_kwargs"]["kvcache_compression_kwargs"]["prompt_guided_compression"] = True
+    paths["12"] = phase_request(cfg, model, rd12, dev, args, ("12", "12", "12"),
+                                E2E_REL_LOGIT_TOL, E2E_MIN_KEPT_AGREEMENT)
+    paths["13"] = phase_images(cfg, model, dev, args.seed)
+    phase_reuse(cfg, model, RETAKE_CONFIG, dev, args.frames, args.seed, "14", features=True)
+    greedy, paths["15"] = phase_spec(cfg, model, dev, args)
+    paths["16 generate_batch"], paths["16 server"] = phase_sampling(cfg, model, dev, args, greedy)
+    t_new = time.perf_counter() - t_new
+    log(f"[12-16] per-question paths: {t_new:.1f} s")
     del model
     torch.cuda.empty_cache()
 
@@ -974,7 +1365,10 @@ def main() -> int:
     rd7 = dict(RETAKE_CONFIG, **SERVING_7B)
     launches7 = phase_request(cfg7, model7, rd7, dev, args, ("10", "10", "10"),
                               E2E7_REL_LOGIT_TOL, E2E7_MIN_KEPT_AGREEMENT)
-    serve7 = phase_serve(cfg7, model7, RetakeConfig.from_dict(rd7), dev, args.seed, tag="11")
+    serve7 = phase_serve(cfg7, model7, RetakeConfig.from_dict(rd7), dev, args.seed, tag="11")[0]
+    paths.update({"10": launches7, "11": serve7})
+    # 14 (7B): the prefix of a 64-frame video in the serving config (int8 KV)
+    phase_reuse(cfg7, model7, rd7, dev, 64, args.seed, "14 7B", features=False)
 
     # the kernels line: K1-K3 from the 2B request (phase 4), K4 from the 2B
     # server (phase 7), K1-int8 from the 7B request (phase 10), K4-int8 from
@@ -982,9 +1376,12 @@ def main() -> int:
     source = {"K1": launches, "K2": launches, "K3": launches, "K4": serve_launches,
               "K1-int8": launches7, "K4-int8": serve7}
     kernel_line = {"kernels": [
-        dict(records[key], launches=source[key][key])
+        dict(records[key], launches=source[key][key],
+             launches_by_path={tag: n[key] for tag, n in paths.items()})
         for key in ("K1", "K1-int8", "K2", "K3", "K4", "K4-int8")
     ]}
+    log(f"[end] chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s (phases 12-16 "
+        f"{t_new:.1f} s)")
     log(smi)
     print(json.dumps(kernel_line))
     print(json.dumps({"ok": True, "device": {

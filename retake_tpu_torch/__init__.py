@@ -19,8 +19,12 @@ Package map:
                     ViT attention, K4 gap-layout batched decode and its
                     int8-KV mode), their plain twins and the nvcc build
   csrc/             the CUDA C++ sources (sm_90a)
-  runtime/          static KV cache (bf16 or int8), the chunked-prefill
-                    engine, ``serve.py``: the continuous-batching server
+  runtime/          static KV cache (bf16 or int8); the chunked-prefill
+                    engine (video, image and mixed prompts, prompt-guided
+                    compression, feature and prefix reuse across
+                    questions, greedy / sampled / speculative decode,
+                    batched decode); ``sampling.py``: the seeded sampler;
+                    ``serve.py``: the continuous-batching server
   utils/            config surface, host positions, stage timing
 """
 

@@ -1,22 +1,39 @@
 """Chunked-prefill inference engine for Qwen2-VL, the ReTaKe runtime
-(port of ``retake_tpu/runtime/engine.py``: sequential ``generate``, the
-prefill-only split and batched decode over the gap-layout cache).
+(port of ``retake_tpu/runtime/engine.py``: ``generate`` with video, image
+and mixed prompts, the prefill-only split, batched decode over the
+gap-layout cache, reuse of a video's features and prefill across
+questions, greedy, sampled and speculative decode).
 
   host (numpy, once per request)           device (torch, eager)
   ---------------------------------        ---------------------------------
-  get_rope_index                           ViT frame chunks (padded tail)
-  DPSelect reforge of ids/positions        DPSelect scoring (+ gather)
-  modality segmentation                    embed + video concat
-  chunk plan: every keep_len/cache_len     text-segment steps (bucketed pad)
-    is host-computable because the         video chunk steps (compress +
-    compression ratio is fixed before        evict in every layer)
-    prefill                                greedy decode steps
-  one static cache budget
+  get_rope_index                           ViT frame chunks (padded tail),
+  DPSelect reforge of ids/positions          one ViT pass per still image
+  modality segmentation                    DPSelect scoring (+ gather)
+  chunk plan: every keep_len/cache_len     embed + video concat + image spans
+    is host-computable because the         text-segment steps (bucketed pad)
+    compression ratio is fixed before      video chunk steps (compress +
+    prefill                                  evict in every layer; with
+  one static cache budget                    prompt-guided compression the
+                                             question rides in every chunk)
+                                           greedy / sampled / speculative
+                                             decode steps
 
 The plan's per-step lengths go to the device once, as one int32 table, and
 the cache length stays on the device, so chunk steps run without host
 reads; the host waits only for the first token and (with early stop) for
-each decoded token one step late.
+each decoded token one step late. Speculative decode (``spec_decode``) is
+a host loop over verify steps: each reads its verdicts back, and a
+rejected proposal rolls the cache back by its length only.
+
+Sampling (``do_sample``, ``runtime/sampling.py``) draws with Gumbel noise
+seeded from (``seed``, request-own step) alone, so a request samples the
+same tokens sequentially, in ``generate_batch`` and in the server.
+
+Reuse across questions about one video: ``encode_video`` ->
+``generate(video_features=...)`` skips the ViT and DPSelect;
+``encode_prefix`` -> ``generate(prefix=...)`` also skips the video prefill
+(the KV cache after the last video chunk is forked per question), and
+raises ``PrefixMismatch`` when a question's plan diverges from the capture.
 
 Batched decode (``generate_batch`` / ``decode_batch``; the continuous server
 in ``runtime/serve.py``) prefills each request alone (``generate(...,
@@ -30,13 +47,12 @@ whatever weights the model holds; int8 linears (``quantize_llm_int8`` /
 ``quantize_vit_int8``) run weight-only, or W8A8 at prefill under
 ``quantization: w8a8`` (decode stays weight-only). ``kv_cache_dtype: int8``
 keeps the KV cache int8 with per-key scales, in the single-request cache,
-the trimmed ``PrefillState`` cache and the gap-layout batch.
+the trimmed ``PrefillState`` cache, a ``VideoPrefix`` and the gap-layout
+batch.
 
-Not ported yet (raise NotImplementedError): images, sampling, prompt-guided
-compression, prefix / feature reuse across questions, speculative decode,
-``attn_implementation: flash``, tensor parallelism, MA-LLM.
+Not ported yet (raise NotImplementedError): ``attn_implementation: flash``,
+tensor parallelism, MA-LLM.
 """
-
 from __future__ import annotations
 
 import dataclasses
@@ -54,13 +70,16 @@ from retake_tpu_torch.models.qwen2_vl.config import Qwen2VLConfig
 from retake_tpu_torch.models.qwen2_vl.model import Qwen2VLModel
 from retake_tpu_torch.ops import dpselect
 from retake_tpu_torch.ops import quantization as q8
+from retake_tpu_torch.ops.cuda import decode_gapped
 from retake_tpu_torch.runtime import cache as cache_lib
+from retake_tpu_torch.runtime.sampling import FIRST, LOOP, Sampler, select_tokens
 from retake_tpu_torch.utils import positions as pos_lib
 from retake_tpu_torch.utils.config import RetakeConfig
 from retake_tpu_torch.utils.profiling import StageTimer
 
 TEXT_BUCKET = 128  # text segments padded to a multiple of this
 BUDGET_BUCKET = 8192  # cache budgets rounded up to a multiple of this
+POOL_PROMPT = 256  # prompt-tail tokens the spec-decode matcher can see
 
 
 def _attn_bucket(fill: int) -> int:
@@ -79,12 +98,17 @@ class GenerationResult:
     first_logits: Optional[np.ndarray] = None  # fp32 [V] logits of token 1
     cache: Optional[cache_lib.KVCache] = None  # the request's KV cache at its end
     stages: Optional[dict] = None  # per-stage seconds (RETAKE_PROFILE=1)
+    # speculative decode: (tokens emitted m, verify steps n_it); m / n_it is
+    # the tokens per verify step (1.0 = no proposal ever accepted)
+    spec_steps: Optional[tuple] = None
 
 
 @dataclasses.dataclass
 class VideoFeatures:
     """Question-independent vision output: LLM-space embeddings and the
-    DPSelect keypatch mask."""
+    DPSelect keypatch mask. ``t`` / ``tgt``: temporal-merged frame counts
+    before / after DPSelect; ``hw``: merged tokens per frame; ``grid``: the
+    raw (t, h, w) patch grid."""
 
     embeds: torch.Tensor
     keymask: np.ndarray
@@ -110,6 +134,50 @@ class PrefillState:
     attn_need: int = 0
 
 
+class PrefixMismatch(ValueError):
+    """``generate(prefix=...)`` got a question whose prefill plan diverges
+    from the captured prefix (another prompt prefix, or a dynamic
+    compression ratio that resolved to other keep lengths). Fall back to
+    ``generate(video_features=prefix.features)``."""
+
+
+class PrefixBudgetOverflow(PrefixMismatch):
+    """The captured prefix's cache budget is too small for this question
+    (more new tokens or a longer question than the capture reserved): a
+    capture with a larger ``reserve_tokens`` fixes it."""
+
+
+class PrefixUnsupported(ValueError):
+    """No question-independent prefill exists under this engine config
+    (prompt-guided compression folds the question into every video chunk)."""
+
+
+@dataclasses.dataclass
+class VideoPrefix:
+    """The compressed KV cache after a video's last chunk, reusable for every
+    question about that video whose plan up to there is the same
+    (``generate(prefix=...)`` forks it, so it is never written)."""
+
+    cache: cache_lib.KVCache
+    final_len: int  # cache fill after the prefix
+    budget: int  # cache budget of the capture (reserve included)
+    split: int  # index into the reforged ids where the prefix ends
+    prefix_ids: np.ndarray  # reforged ids[:split]
+    plan_sig: tuple  # ((kind, offset, valid, keep), ...) of the prefix steps
+    features: Optional[VideoFeatures] = None  # vision metadata and the fallback
+    prefill_seconds: float = 0.0  # capture time (vision + video prefill)
+    stages: Optional[dict] = None
+
+
+def _fork_cache(cache: cache_lib.KVCache) -> cache_lib.KVCache:
+    """A device copy of a cache (k, v, pos, length and int8 scale planes):
+    chunk steps write their cache in place."""
+    return cache_lib.KVCache(**{
+        f.name: None if getattr(cache, f.name) is None else getattr(cache, f.name).clone()
+        for f in dataclasses.fields(cache)
+    })
+
+
 def _trim_cache(cache: cache_lib.KVCache, need: int) -> cache_lib.KVCache:
     """Copy a prefilled cache down to its decode bucket, so the full prefill
     budget is freed (a view would keep it alive)."""
@@ -130,8 +198,20 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to retake_tpu_torch yet")
 
 
+def batched_decode_impl(cfg: Qwen2VLConfig, device) -> str:
+    """The batched-decode attention arm for a model on ``device``: K4
+    (``"pallas"``) on CUDA when the GQA group fits the kernel, the plain
+    arm (``"xla"``) otherwise."""
+    group = cfg.num_attention_heads // cfg.num_key_value_heads
+    on_cuda = torch.device(device).type == "cuda"
+    return "pallas" if on_cuda and group <= decode_gapped.MAX_GROUP else "xla"
+
+
 class Qwen2VLEngine:
-    """Single-request (batch 1) long-video inference engine."""
+    """Single-request (batch 1) long-video inference engine.
+
+    ``noise_fn`` (None: ``sampling.gumbel_noise``) is the sampler's noise
+    source under ``do_sample``; tests set it to feed known draws."""
 
     def __init__(
         self,
@@ -148,12 +228,6 @@ class Qwen2VLEngine:
         impl = retake.attn_implementation
         if impl == "flash":
             raise _not_ported("attn_implementation 'flash'")
-        if retake.do_sample:
-            raise _not_ported("do_sample")
-        if retake.spec_decode:
-            raise _not_ported("spec_decode")
-        if retake.kvcache_compression and retake.kv.prompt_guided_compression:
-            raise _not_ported("prompt_guided_compression")
         if retake.visual_compression and retake.visual.compression_method != "Keyframe":
             raise _not_ported(f"visual compression {retake.visual.compression_method}")
         self.cfg = cfg
@@ -162,6 +236,11 @@ class Qwen2VLEngine:
         self.attn_impl = impl if impl in ("pallas", "xla") else "pallas"
         # W8A8: prefill linears int8 x int8, only where the weights are int8
         self.act_quant = retake.quantization == "w8a8"
+        self.noise_fn = None
+
+    @property
+    def sampler(self) -> Optional[Sampler]:
+        return Sampler.from_config(self.retake, self.noise_fn)
 
     # ---------- vision ----------
 
@@ -198,6 +277,24 @@ class Qwen2VLEngine:
                 on_dispatch()
         return out_buf
 
+    def run_vision_images(self, pixel_values, image_grid_thw) -> torch.Tensor:
+        """ViT over still images (reference qwen2_vl.py:593-595): each image
+        is its own (t, h, w) grid; the embeddings concatenate in input
+        order."""
+        grids = np.asarray(image_grid_thw).reshape(-1, 3)
+        visual = self.model.visual
+        pixels = torch.as_tensor(pixel_values).to(self.device, visual.dtype)
+        aq = self.act_quant and visual.int8
+        outs = []
+        off = 0
+        for t, h, w in grids.tolist():
+            n = t * h * w
+            outs.append(visual(pixels[off : off + n], t, h, w, self.attn_impl, aq))
+            off += n
+        if off != pixels.shape[0]:
+            raise ValueError(f"image grids cover {off} patches, pixel_values has {pixels.shape[0]}")
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
     def get_chunk_tokens(self, video_grid_thw) -> Optional[int]:
         """Tokens per LLM prefill chunk (chunked_prefill_frames is in raw
         frames)."""
@@ -212,7 +309,8 @@ class Qwen2VLEngine:
     def encode_video(
         self, pixel_values_videos, video_grid_thw, on_dispatch=None, _timer=None
     ) -> VideoFeatures:
-        """Vision tower + DPSelect keyframe selection."""
+        """Vision tower + DPSelect keyframe selection: the question-independent
+        artifact ``generate(video_features=...)`` takes."""
         timer = _timer or StageTimer()
         cfg, rt = self.cfg, self.retake
         t, h, w = (int(x) for x in np.asarray(video_grid_thw).reshape(-1)[:3])
@@ -250,9 +348,10 @@ class Qwen2VLEngine:
         Each request is a dict of ``generate`` kwargs and may carry its own
         ``max_new_tokens``: the batch decodes the largest budget and each
         slot stops at its own (``decode_batch`` with ``req_max``), so every
-        result is token-exact against sequential ``generate``. Decode runs
-        the plain attention arm (``decode_batch``'s default), as in the JAX
-        engine."""
+        result is token-exact against sequential ``generate``, sampled ones
+        too (draws depend on the request-own step), up to the rounding of
+        the decode attention: K4 on CUDA, the plain arm elsewhere (the JAX
+        engine's ``decode_batch`` arm)."""
         if not requests:
             return []
         if self.attn_impl == "xla":
@@ -274,7 +373,9 @@ class Qwen2VLEngine:
         ]
         results = decode_batch(
             self.model, self.cfg, self.retake, states, batch_max,
+            attn_impl=batched_decode_impl(self.cfg, self.device),
             early_stop=bool(self.retake.decode_early_stop), req_max=req_max,
+            sampler=self.sampler,
         )
         for res, m in zip(results, req_max):
             res.tokens = res.tokens[:m]
@@ -288,23 +389,38 @@ class Qwen2VLEngine:
         max_new_tokens: Optional[int] = None,
         pixel_values=None,
         image_grid_thw=None,
-        video_features: Optional[VideoFeatures] = None,
+        video_features: Optional[VideoFeatures] = None,  # an encode_video artifact
+        prefix: Optional[VideoPrefix] = None,  # an encode_prefix artifact
         _prefill_only: bool = False,
+        _capture_reserve: Optional[int] = None,  # encode_prefix plumbing
         on_dispatch=None,  # serving hook: called after each ViT chunk and plan step
     ):
-        """One request: prefill and greedy decode -> ``GenerationResult``;
-        with ``_prefill_only`` the prefill's ``PrefillState`` instead."""
-        if pixel_values is not None or image_grid_thw is not None:
-            raise _not_ported("image inputs (run_vision_images)")
-        if video_features is not None:
-            raise _not_ported("video feature reuse")
+        """One request: prefill and decode -> ``GenerationResult``; with
+        ``_prefill_only`` the prefill's ``PrefillState`` instead, with
+        ``_capture_reserve`` the ``VideoPrefix``."""
         timer = StageTimer()
         cfg = self.cfg
         max_new_tokens = max_new_tokens or self.retake.max_new_tokens
         ids = np.asarray(input_ids, dtype=np.int64).reshape(-1)
 
         t0 = time.perf_counter()
+        if prefix is not None:
+            if pixel_values_videos is not None or video_features is not None:
+                raise ValueError("generate(prefix=...) replaces both the pixels and the "
+                                 "video_features inputs")
+            # positions come from the captured grid: a prompt whose video span
+            # differs from the capture fails here, before get_rope_index
+            n_vid = int(np.sum(ids == cfg.video_token_id))
+            n_expected = prefix.features.t * prefix.features.hw
+            if n_vid != n_expected:
+                raise PrefixMismatch(
+                    f"prompt has {n_vid} video tokens but the captured prefix has {n_expected}"
+                )
+            video_grid_thw = np.asarray([prefix.features.grid])
+        if pixel_values_videos is None and video_features is not None:
+            video_grid_thw = np.asarray([video_features.grid])
         grid = None if video_grid_thw is None else np.asarray(video_grid_thw).reshape(-1, 3)
+        igrid = None if image_grid_thw is None else np.asarray(image_grid_thw).reshape(-1, 3)
         pos, _ = pos_lib.get_rope_index(
             ids,
             spatial_merge_size=cfg.vision.spatial_merge_size,
@@ -312,25 +428,37 @@ class Qwen2VLEngine:
             video_token_id=cfg.video_token_id,
             vision_start_token_id=cfg.vision_start_token_id,
             video_grid_thw=grid,
+            image_grid_thw=igrid,
         )
         decode_pos_base = int(pos.max()) + 1
+
+        # still images: one ViT pass each, scattered at the image-token spans
+        # by prefill_and_decode; image tokens prefill as text segments
+        image_embeds = None
+        if pixel_values is not None:
+            with timer.stage("vision_tower_images"):
+                image_embeds = self.run_vision_images(pixel_values, igrid)
 
         video_embeds = None
         keypatch_tokens = np.zeros(len(ids), dtype=bool)
         if pixel_values_videos is not None:
-            vf = self.encode_video(pixel_values_videos, grid[0], on_dispatch, _timer=timer)
-            video_embeds = vf.embeds
+            video_features = self.encode_video(pixel_values_videos, grid[0], on_dispatch,
+                                               _timer=timer)
+        vf = prefix.features if prefix is not None else video_features
+        if vf is not None:
             if vf.tgt != vf.t:
                 vi = np.where(ids == cfg.video_token_id)[0]
                 ids, pos = pos_lib.reforge_after_visual_compression(
                     ids, pos, (int(vi[0]), int(vi[-1]) + 1), vf.tgt * vf.hw, vf.t - vf.tgt
                 )
                 keypatch_tokens = np.zeros(len(ids), dtype=bool)
-            vi = np.where(ids == cfg.video_token_id)[0]
-            keypatch_tokens[vi[0] : vi[0] + len(vf.keymask)] = vf.keymask
+            if prefix is None:  # the prefix's video KV is already in its cache
+                video_embeds = vf.embeds
+                vi = np.where(ids == cfg.video_token_id)[0]
+                keypatch_tokens[vi[0] : vi[0] + len(vf.keymask)] = vf.keymask
 
         chunk_tokens = self.get_chunk_tokens(grid[0]) if grid is not None else None
-        return prefill_and_decode(
+        out = prefill_and_decode(
             self.model, cfg, self.retake,
             ids=ids, pos=pos, keypatch_tokens=keypatch_tokens,
             video_embeds=video_embeds, video_token_id=cfg.video_token_id,
@@ -339,6 +467,33 @@ class Qwen2VLEngine:
             timer=timer, t_start=t0, device=self.device,
             prefill_only=_prefill_only, on_dispatch=on_dispatch,
             act_quant=self.act_quant and self.model.int8,
+            image_embeds=image_embeds, image_token_id=cfg.image_token_id,
+            sampler=self.sampler, capture_reserve=_capture_reserve, prefix=prefix,
+        )
+        if _capture_reserve is not None:
+            out.features = video_features  # metadata and the fallback artifact
+        return out
+
+    def encode_prefix(
+        self,
+        input_ids: np.ndarray,
+        pixel_values_videos=None,
+        video_grid_thw=None,
+        video_features: Optional[VideoFeatures] = None,
+        max_new_tokens: Optional[int] = None,
+        reserve_tokens: int = 512,
+        on_dispatch=None,
+    ) -> VideoPrefix:
+        """Vision and the question-independent video prefill, once: a
+        ``VideoPrefix`` after which ``generate(input_ids, prefix=...)`` runs
+        only the trailing text segment and decode. ``input_ids`` is any full
+        prompt with the video span (its suffix is not run);
+        ``reserve_tokens`` bounds how much longer a later question's suffix
+        may be."""
+        return self.generate(
+            input_ids, pixel_values_videos, video_grid_thw,
+            max_new_tokens=max_new_tokens, video_features=video_features,
+            _capture_reserve=int(reserve_tokens), on_dispatch=on_dispatch,
         )
 
 
@@ -348,14 +503,24 @@ def plan_chunks(
     chunk_tokens: Optional[int],
     ratio: float,
     compress_video: bool,
+    prompt_guided: bool = False,
 ) -> tuple:
     """Host plan: (steps, final cache length, max write extent). Each step
-    is a dict with kind, offset, valid, chunk_len, keep and cache_len."""
+    is a dict with kind, offset, valid, chunk_len, keep, cache_len and
+    prompt_len. ``prompt_guided``: every video chunk also carries the last
+    text segment (the question), ``prompt_len`` rows after its valid video
+    rows, and keeps ``int(ratio * (valid + prompt_len))`` entries."""
     s = len(ids)
     if chunk_tokens is None:
         segments = [(0, s, "text")]
     else:
         segments = pos_lib.segment_modalities(ids, video_token_id)
+    p_len = 0
+    if prompt_guided:
+        sp, ep, kind = segments[-1]
+        if kind != "text":
+            raise ValueError("prompt-guided compression needs a trailing text segment")
+        p_len = ep - sp
     plan: List[dict] = []
     cache_len = 0
     max_extent = 0
@@ -364,19 +529,108 @@ def plan_chunks(
         if kind == "text":
             padded = max(TEXT_BUCKET, math.ceil(n / TEXT_BUCKET) * TEXT_BUCKET)
             plan.append(dict(kind="text", offset=seg_s, valid=n, chunk_len=padded,
-                             keep=n, cache_len=cache_len))
+                             keep=n, cache_len=cache_len, prompt_len=0))
             max_extent = max(max_extent, cache_len + padded)
             cache_len += n
             continue
         for ci in range(math.ceil(n / chunk_tokens)):
             ss = seg_s + ci * chunk_tokens
             valid = min(chunk_tokens, seg_e - ss)
-            keep = max(1, int(ratio * valid)) if compress_video else valid
+            q_len = valid + p_len
+            keep = max(1, int(ratio * q_len)) if compress_video else q_len
             plan.append(dict(kind="video", offset=ss, valid=valid, chunk_len=chunk_tokens,
-                             keep=keep, cache_len=cache_len))
-            max_extent = max(max_extent, cache_len + chunk_tokens)
+                             keep=keep, cache_len=cache_len, prompt_len=p_len))
+            max_extent = max(max_extent, cache_len + chunk_tokens + p_len)
             cache_len += keep
     return plan, cache_len, max_extent
+
+
+def _prompt_block(embeds, pos_dev, kp_dev, step, prompt_offset):
+    """The prompt-guided chunk ``[video valid prefix | prompt | leftover]`` of
+    ``chunk_len + prompt_len`` rows (reference forge_input_chunks,
+    qwen2_vl.py:493-519): the prompt's positions are shifted to continue
+    right after the chunk's last valid token, and its rows are not
+    keypatches. Every offset is a host int, so this is slicing only."""
+    off, valid, n, pl = step["offset"], step["valid"], step["chunk_len"], step["prompt_len"]
+    video = torch.cat([embeds[off : off + n], embeds.new_zeros((pl, embeds.shape[1]))])
+    hidden = torch.cat([video[:valid], embeds[prompt_offset : prompt_offset + pl],
+                        video[valid + pl :]])
+    pos_v = pos_dev[:, off : off + n]
+    pos_v = torch.cat([pos_v, pos_v[:, -1:].expand(3, pl)], dim=1)
+    pos_p = pos_dev[:, prompt_offset : prompt_offset + pl]
+    shift = pos_p[0, 0] - pos_v[0, max(valid - 1, 0)] - 1
+    pos3 = torch.cat([pos_v[:, :valid], pos_p - shift, pos_v[:, valid + pl :]], dim=1)
+    kp_v = torch.cat([kp_dev[off : off + n], kp_dev.new_zeros(pl)])
+    kp = torch.cat([kp_v[:valid], kp_dev.new_zeros(pl), kp_v[valid + pl :]])
+    return hidden, pos3, kp
+
+
+def _spec_decode_loop(
+    model: Qwen2VLModel,
+    cfg: Qwen2VLConfig,
+    kv: cache_lib.KVCache,
+    first_token: int,
+    pos_base: int,
+    prompt_tail: np.ndarray,  # [POOL_PROMPT] int, left-padded with -1
+    max_new: int,
+    ngram: int,
+    draft: int,
+    reforge: bool,
+    attn_impl: str,
+) -> tuple:
+    """Prompt-lookup speculative decode, greedy (reference
+    ``_spec_decode_loop``, engine.py:347-445), as a host loop over device
+    verify steps. Each step matches the trailing ``ngram`` tokens of
+    [prompt tail | generated] against earlier occurrences, proposes the
+    ``draft`` tokens that followed the latest match (junk where none did;
+    verification rejects it), and verifies all of them in one chunk of
+    ``draft + 1`` rows. Rejected proposals roll back by the cache length
+    only: their K/V lie past it and the next chunk overwrites them.
+    Returns (tokens [max_new + draft], EOS past the stream; m tokens
+    emitted; n_it verify steps)."""
+    eos = cfg.eos_token_id
+    dev = kv.k.device
+    k1 = draft + 1
+    p0 = len(prompt_tail)
+    pool_len = p0 + 1 + max_new + k1
+    pool = np.full(pool_len, -1, np.int64)
+    pool[:p0] = prompt_tail
+    pool[p0] = first_token
+    buf = np.full(max_new + k1, eos, np.int64)
+    win_starts = np.arange(pool_len - ngram)
+    win_idx = win_starts[:, None] + np.arange(ngram)
+    idx_k1 = np.arange(k1)
+    k1_dev = torch.tensor(k1, dtype=torch.int32, device=dev)
+    no_keypatch = torch.zeros(k1, dtype=torch.bool, device=dev)
+    m = n_it = 0
+    cur, done = first_token, first_token == eos
+    while m < max_new and not done:
+        cur_len = p0 + 1 + m
+        suffix = pool[cur_len - ngram : cur_len]
+        ok = (pool[win_idx] == suffix).all(axis=-1) & (win_starts < cur_len - ngram)
+        last = int(win_starts[ok].max()) if ok.any() else -1
+        start = min(max(last, 0) + ngram, pool_len - draft)  # dynamic_slice clamps
+        prop = pool[start : start + draft]
+        chunk = torch.from_numpy(np.concatenate([[cur], prop])).to(dev)
+        pos3 = torch.from_numpy(
+            np.broadcast_to(pos_base + m + idx_k1, (3, k1)).astype(np.int32)).to(dev)
+        hidden, kv = text.decoder_chunk(
+            model, cfg, kv, text.embed(model, chunk), pos3, k1_dev, no_keypatch, k1_dev,
+            compress=False, reforge=reforge, attn_impl=attn_impl,
+        )
+        nxt = torch.argmax(text.final_logits_batch(model, cfg, hidden), dim=-1).cpu().numpy()
+        a_acc = int(np.cumprod(prop == nxt[:draft]).sum())
+        is_eos = (nxt == eos) & (idx_k1 <= a_acc)
+        done = bool(is_eos.any())
+        emit_n = int(np.argmax(is_eos)) + 1 if done else a_acc + 1
+        emit = np.where(idx_k1 < emit_n, nxt, eos)
+        buf[m : m + k1] = emit
+        pool[cur_len : cur_len + k1] = emit
+        kv.length -= k1 - emit_n  # keep K/V for the emit_n verified inputs only
+        cur = int(nxt[emit_n - 1])
+        m += emit_n
+        n_it += 1
+    return buf, m, n_it
 
 
 def prefill_and_decode(
@@ -399,24 +653,82 @@ def prefill_and_decode(
     prefill_only: bool = False,
     on_dispatch=None,  # called after each plan step is enqueued (serving hook)
     act_quant: bool = False,  # W8A8 prefill linears (int8 weights)
+    image_embeds: Optional[torch.Tensor] = None,  # [n image tokens, d], token order
+    image_token_id: Optional[int] = None,
+    sampler: Optional[Sampler] = None,  # None: greedy
+    capture_reserve: Optional[int] = None,  # capture a VideoPrefix, reserving
+    #   this many suffix tokens in the budget
+    prefix: Optional[VideoPrefix] = None,  # resume from a captured prefix
 ):
-    """Chunked prefill over one static cache budget, then greedy decode
-    (or, with ``prefill_only``, the ``PrefillState`` for batched decode).
-    An int8 KV cache (``kv_cache_dtype: int8``) takes each decode token
-    quantized per key."""
+    """Chunked prefill over one static cache budget, then decode (greedy,
+    sampled or speculative); with ``prefill_only`` the ``PrefillState`` for
+    batched decode, with ``capture_reserve`` the ``VideoPrefix`` after the
+    last video chunk. With ``prefix`` the plan's prefix steps are skipped:
+    their K/V come from a fork of the captured cache. An int8 KV cache
+    (``kv_cache_dtype: int8``) takes each decode token quantized per key."""
     s = len(ids)
     ratio = rt.compression_ratio_for(s)
     reforge = rt.kv.pos_embed_reforge and rt.kvcache_compression
     compress_video = rt.kvcache_compression and ratio < 1.0
+    prompt_guided = rt.kv.prompt_guided_compression and compress_video
 
     plan, final_len, max_extent = plan_chunks(
-        ids, video_token_id, chunk_tokens, ratio, compress_video
+        ids, video_token_id, chunk_tokens, ratio, compress_video, prompt_guided
     )
-    needed = max(max_extent, final_len + max_new_tokens)
+    # spec decode writes (then rolls back) up to spec_draft K/V entries past
+    # the accepted stream
+    spec = bool(rt.spec_decode) and sampler is None
+    spec_draft = int(rt.spec_draft) if spec else 0
+    needed = max(max_extent, final_len + max_new_tokens + spec_draft)
     budget = math.ceil(needed / BUDGET_BUCKET) * BUDGET_BUCKET
 
+    # cross-question reuse: the plan through the last video chunk is
+    # question-independent unless the question rides in the video chunks
+    n_prefix_steps = 0
+    if capture_reserve is not None or prefix is not None:
+        if prompt_guided:
+            raise PrefixUnsupported(
+                "prefix reuse requires prompt_guided_compression off (the question "
+                "enters every video chunk)"
+            )
+        vid_steps = [i for i, p in enumerate(plan) if p["kind"] == "video"]
+        if not vid_steps:
+            raise ValueError("no video segment: nothing to capture or reuse")
+        last_vid = vid_steps[-1]
+        split = plan[last_vid]["offset"] + plan[last_vid]["valid"]
+        n_prefix_steps = last_vid + 1
+        if n_prefix_steps == len(plan):
+            raise ValueError("prompt ends with the video span; prefix reuse needs a "
+                             "trailing text (question) segment for the first token")
+        plan_sig = tuple((p["kind"], p["offset"], p["valid"], p["keep"] if p["kind"] == "video"
+                          else -1) for p in plan[:n_prefix_steps])
+        prefix_len = plan[last_vid]["cache_len"] + plan[last_vid]["keep"]
+    if prefix is not None:
+        if split != prefix.split or not np.array_equal(ids[:split], prefix.prefix_ids):
+            raise PrefixMismatch("prompt prefix differs from the captured prefix (same "
+                                 "video, system prompt and frame count required)")
+        if plan_sig != prefix.plan_sig:
+            raise PrefixMismatch("prefill plan diverged from the captured prefix "
+                                 f"(dynamic compression ratio? input_len={s})")
+        if prefix_len != prefix.final_len:
+            raise PrefixMismatch(f"prefix length {prefix_len} != captured {prefix.final_len}")
+        if needed > prefix.budget:
+            raise PrefixBudgetOverflow(
+                f"cache budget {prefix.budget} too small for this question (needs "
+                f"{needed}); re-encode the prefix with a larger reserve_tokens"
+            )
+        budget = prefix.budget
+        if video_embeds is not None:
+            raise ValueError("generate(prefix=...) takes no video embeddings")
+        if image_embeds is not None and np.any(np.flatnonzero(ids == image_token_id) < split):
+            raise NotImplementedError("image tokens inside the captured prefix span")
+    elif capture_reserve is not None:
+        needed = max(max_extent, prefix_len + capture_reserve + max_new_tokens + spec_draft)
+        budget = math.ceil(needed / BUDGET_BUCKET) * BUDGET_BUCKET
+
     # device inputs: ids/positions/keypatch padded to the plan's extent, and
-    # every step's (valid_len, keep_len) in one table
+    # every step's (valid_len, keep_len) in one table (a prompt-guided
+    # chunk's valid rows include the prompt)
     s_pad = max(max(p["offset"] + p["chunk_len"] for p in plan), s)
     ids_pad = np.zeros(s_pad, dtype=np.int64)
     ids_pad[:s] = ids
@@ -430,7 +742,7 @@ def prefill_and_decode(
     pos_dev = torch.from_numpy(pos_pad).to(device)
     kp_dev = torch.from_numpy(kp_pad).to(device)
     lens_dev = torch.tensor(
-        [[p["valid"], p["keep"]] for p in plan] + [[1, 1]], dtype=torch.int32
+        [[p["valid"] + p["prompt_len"], p["keep"]] for p in plan] + [[1, 1]], dtype=torch.int32
     ).to(device)
 
     if video_embeds is not None:
@@ -450,30 +762,68 @@ def prefill_and_decode(
         ])
     else:
         embeds = text.embed(model, ids_dev)
-    video_embeds = None
+    if image_embeds is not None:
+        # each contiguous image-token span takes the next rows of the
+        # concatenated image embeddings (masked_scatter order)
+        img_idx = np.flatnonzero(ids == image_token_id)
+        if len(img_idx) != image_embeds.shape[0]:
+            raise ValueError(f"image tokens {len(img_idx)} != image features "
+                             f"{image_embeds.shape[0]}")
+        breaks = np.flatnonzero(np.diff(img_idx) > 1)
+        starts = np.concatenate([img_idx[:1], img_idx[breaks + 1]])
+        ends = np.concatenate([img_idx[breaks] + 1, img_idx[-1:] + 1])
+        off = 0
+        for s0, e0 in zip(starts.tolist(), ends.tolist()):
+            embeds[s0:e0] = image_embeds[off : off + e0 - s0].to(embeds.dtype)
+            off += e0 - s0
+    video_embeds = image_embeds = None
 
-    kv = cache_lib.init_cache(
-        cfg.num_hidden_layers, cfg.num_key_value_heads, budget, cfg.head_dim,
-        dtype=embeds.dtype, device=device, quantized=rt.kv_cache_dtype == "int8",
-    )
+    if prefix is not None:  # the snapshot serves the video's other questions
+        kv = _fork_cache(prefix.cache)
+    else:
+        kv = cache_lib.init_cache(
+            cfg.num_hidden_layers, cfg.num_key_value_heads, budget, cfg.head_dim,
+            dtype=embeds.dtype, device=device, quantized=rt.kv_cache_dtype == "int8",
+        )
 
+    # resume: the prefix steps live in the forked cache; capture: stop after
+    # the last video chunk (the suffix runs per question)
+    first = n_prefix_steps if prefix is not None else 0
+    n_run = n_prefix_steps if capture_reserve is not None else len(plan)
+    prompt_offset = plan[-1]["offset"]
     hidden = None
     with timer.stage("prefill_chunks"):
-        for i, step in enumerate(plan):
+        for i in range(first, n_run):
+            step = plan[i]
             off, n = step["offset"], step["chunk_len"]
+            if step["prompt_len"]:
+                x, p3, kp = _prompt_block(embeds, pos_dev, kp_dev, step, prompt_offset)
+            else:
+                x, p3, kp = embeds[off : off + n], pos_dev[:, off : off + n], kp_dev[off : off + n]
             hidden, kv = text.decoder_chunk(
-                model, cfg, kv, embeds[off : off + n], pos_dev[:, off : off + n],
-                lens_dev[i, 0], kp_dev[off : off + n], lens_dev[i, 1],
+                model, cfg, kv, x, p3, lens_dev[i, 0], kp, lens_dev[i, 1],
                 compress=step["kind"] == "video" and compress_video,
                 reforge=reforge, attn_impl=attn_impl, act_quant=act_quant,
             )
             if on_dispatch is not None:
                 on_dispatch()
-    last_valid = plan[-1]["valid"]
+
+    if capture_reserve is not None:
+        fill = int(kv.length)  # waits for the prefix steps
+        if fill != prefix_len:
+            raise RuntimeError(f"prefix cache fill {fill} != planned {prefix_len}")
+        timer.report()
+        return VideoPrefix(
+            cache=kv, final_len=prefix_len, budget=budget, split=split,
+            prefix_ids=np.asarray(ids[:split]).copy(), plan_sig=plan_sig,
+            prefill_seconds=time.perf_counter() - t_start,
+            stages=dict(timer.totals) if timer.totals else None,
+        )
+    last_valid = plan[-1]["valid"] + plan[-1]["prompt_len"]
 
     with timer.stage("first_token"):
         logits = text.final_logits(model, cfg, hidden[last_valid - 1])
-        token = torch.argmax(logits).reshape(1)
+        token = select_tokens(logits[None], sampler, FIRST, [0])
         token_host = int(token)  # prefill ends when the first token is ready
     t_prefill = time.perf_counter() - t_start
     cache_fill = int(kv.length)
@@ -494,29 +844,43 @@ def prefill_and_decode(
             final_len=final_len, reforge=reforge, result=result, attn_need=need,
         )
 
-    # decode: greedy; with early stop the host checks each token one step
-    # late, so it never waits on the step it is enqueuing
+    # decode; with early stop the host checks each token one step late, so
+    # it never waits on the step it is enqueuing
     t0 = time.perf_counter()
     out_tokens = [token_host]
     eos = cfg.eos_token_id
+    spec_steps = None
     if max_new_tokens > 1 and token_host != eos:
-        early_stop = bool(rt.decode_early_stop)
-        one = lens_dev[-1, 0]
-        no_keypatch = torch.zeros(1, dtype=torch.bool, device=device)
-        pos_base = torch.full((3, 1), decode_pos_base, dtype=torch.int32, device=device)
-        steps = []
         with timer.stage("decode"):
-            for i in range(max_new_tokens - 1):
-                hidden, kv = text.decoder_chunk(
-                    model, cfg, kv, text.embed(model, token), pos_base + i,
-                    one, no_keypatch, one, compress=False, reforge=reforge,
-                    attn_impl=attn_impl,
+            if spec:
+                tail = np.full(POOL_PROMPT, -1, np.int64)
+                t = ids[-POOL_PROMPT:]
+                tail[POOL_PROMPT - len(t) :] = t
+                tokens, n_emit, n_steps = _spec_decode_loop(
+                    model, cfg, kv, token_host, decode_pos_base, tail, max_new_tokens - 1,
+                    int(rt.spec_ngram), spec_draft, reforge, attn_impl,
                 )
-                token = torch.argmax(text.final_logits(model, cfg, hidden[0])).reshape(1)
-                steps.append(token)
-                if early_stop and len(steps) > 1 and int(steps[-2]) == eos:
-                    break
-            tokens = torch.cat(steps).cpu().numpy()
+                tokens = tokens[: max_new_tokens - 1]
+                spec_steps = (n_emit, n_steps)
+                timer.totals["spec_tokens_per_step"] = round(n_emit / max(n_steps, 1), 3)
+            else:
+                early_stop = bool(rt.decode_early_stop)
+                one = lens_dev[-1, 0]
+                no_keypatch = torch.zeros(1, dtype=torch.bool, device=device)
+                pos_base = torch.full((3, 1), decode_pos_base, dtype=torch.int32, device=device)
+                steps = []
+                for i in range(max_new_tokens - 1):
+                    hidden, kv = text.decoder_chunk(
+                        model, cfg, kv, text.embed(model, token), pos_base + i,
+                        one, no_keypatch, one, compress=False, reforge=reforge,
+                        attn_impl=attn_impl,
+                    )
+                    token = select_tokens(text.final_logits(model, cfg, hidden[0])[None],
+                                          sampler, LOOP, [i])
+                    steps.append(token)
+                    if early_stop and len(steps) > 1 and int(steps[-2]) == eos:
+                        break
+                tokens = torch.cat(steps).cpu().numpy()
         hit = np.flatnonzero(tokens == eos)
         end = (hit[0] + 1) if len(hit) else len(tokens)
         out_tokens.extend(tokens[:end].tolist())
@@ -533,6 +897,7 @@ def prefill_and_decode(
         first_logits=first_logits,
         cache=kv,
         stages=dict(timer.totals) if timer.totals else None,
+        spec_steps=spec_steps,
     )
 
 
@@ -594,7 +959,7 @@ def _decode_loop_batch(
     gap_start: int,
     first_tokens: torch.Tensor,  # [B] int
     num_steps: int,
-    sampling=None,
+    sampler: Optional[Sampler] = None,  # None: greedy
     dec_start=None,  # [B] int32 per-slot decode-region start; None = gap_start
     i0: int = 0,  # global decode steps taken before this call (write pointer)
     done0=None,  # [B] bool slots already finished or free; None = first == eos
@@ -603,16 +968,17 @@ def _decode_loop_batch(
     max_steps=None,  # [B] int32 per-slot output budget (max_new_tokens - 1)
     ks_all=None,  # [L, B, KV, S] f32 scale planes of an int8 cache, written in place
     vs_all=None,
+    step_off=None,  # [B] host ints: slot b draws at its own step i - step_off[b]
 ) -> torch.Tensor:
-    """Greedy batched decode: ``num_steps`` steps for all B slots; returns
+    """Batched decode: ``num_steps`` steps for all B slots; returns
     the tokens [num_steps, B] (int64, on the device). Step i's K/V land at
     the shared column ``gap_start + i`` (quantized per key into an int8
     cache, their scales into the scale planes). A slot that is done emits
     EOS. With ``early_stop`` the host reads ``all(done)`` of the previous
     step while the current one is queued, so at most one step more than
-    needed runs; the skipped rows stay EOS, as in the JAX while-loop."""
-    if sampling is not None:
-        raise _not_ported("sampling in batched decode")
+    needed runs; the skipped rows stay EOS, as in the JAX while-loop. A
+    sampled step draws each slot at its request-own step (the global step
+    ``i0 + j`` minus ``step_off``), the sequential loop's schedule."""
     eos = cfg.eos_token_id
     tokens = first_tokens.to(torch.int64)
     done = (tokens == eos) if done0 is None else done0.to(torch.bool)
@@ -625,7 +991,8 @@ def _decode_loop_batch(
             final_len, gap_start, i, dec_start=dec_start, attn_impl=attn_impl,
             ks_all=ks_all, vs_all=vs_all,
         )
-        nxt = torch.argmax(text.final_logits_batch(model, cfg, hidden), dim=-1)
+        own = [i - int(o) for o in step_off] if step_off is not None else [i] * len(tokens)
+        nxt = select_tokens(text.final_logits_batch(model, cfg, hidden), sampler, LOOP, own)
         nxt = torch.where(done, eos, nxt)
         done = done | (nxt == eos)
         if max_steps is not None:
@@ -654,14 +1021,16 @@ def decode_batch(
     attn_impl: str = "xla",  # the plain arm, as in the JAX engine's decode_batch
     early_stop: bool = False,
     req_max: Optional[List[int]] = None,  # per-request total token budgets
+    sampler: Optional[Sampler] = None,  # None: the config's (greedy without do_sample)
 ) -> List[GenerationResult]:
-    """Batched greedy decode over prefilled requests (``generate_batch``).
+    """Batched decode over prefilled requests (``generate_batch``).
     Requests whose first token is EOS do not join the batch; the others
     share the decode region starting at their largest ``final_len``."""
     if not states:
         return []
     if any(st.reforge != states[0].reforge for st in states):
         raise ValueError("decode_batch: mixed reforge settings across prefill states")
+    sampler = sampler or Sampler.from_config(rt)
     t0 = time.perf_counter()
     eos = cfg.eos_token_id
     out_tokens = [[st.first_token_host] for st in states]
@@ -684,7 +1053,7 @@ def decode_batch(
             dev_vec([states[i].decode_pos_base for i in live], torch.int32),
             dev_vec([states[i].final_len for i in live], torch.int32), gap_start,
             dev_vec([states[i].first_token_host for i in live], torch.int64),
-            max_new_tokens - 1, attn_impl=attn_impl, early_stop=early_stop,
+            max_new_tokens - 1, sampler=sampler, attn_impl=attn_impl, early_stop=early_stop,
             max_steps=max_steps, ks_all=ks_all, vs_all=vs_all,
         ).cpu().numpy()
         del k_all, v_all, ks_all, vs_all

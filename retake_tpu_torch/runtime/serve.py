@@ -1,5 +1,6 @@
 """Continuous batching: admit new requests mid-decode
-(port of ``retake_tpu/runtime/serve.py``, greedy; bf16 or int8 KV cache).
+(port of ``retake_tpu/runtime/serve.py``: greedy or sampled; bf16 or int8
+KV cache).
 
 Decode runs in fixed-size SEGMENTS of ``segment_steps`` steps; between
 segments the host admits newly arrived requests into free batch slots and
@@ -37,9 +38,14 @@ has no counterpart here.
 CUDA and the model's GQA group fits the kernel, the plain arm (``"xla"``)
 otherwise.
 
+Sampling (``do_sample``) is reproducible: each slot draws at its
+request-own step (the global step minus ``step_off``, which admission sets
+and compaction rebases with F), so a sampled request gets the noise of its
+sequential ``generate`` whatever its arrival, slot or compactions.
+
 Not ported yet (raise NotImplementedError): the vision-feature and prefix
-caches (``vision_cache_slots`` / ``prefix_cache_slots``), the online mode
-(``start_online``) and sampling.
+caches (``vision_cache_slots`` / ``prefix_cache_slots``) and the online
+mode (``start_online``).
 """
 
 from __future__ import annotations
@@ -51,13 +57,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from retake_tpu_torch.ops.cuda import decode_gapped
 from retake_tpu_torch.runtime.engine import (
     PrefillState,
     _decode_loop_batch,
     _insert_batch_slot,
     _not_ported,
+    batched_decode_impl,
 )
+from retake_tpu_torch.runtime.sampling import Sampler
 
 GAP_ALIGN = 2048  # the shared bucket (prefill bucket + gap) is a multiple of this
 
@@ -120,7 +127,7 @@ class ServeResult:
 
 
 class ContinuousServer:
-    """Continuous-batching server over one engine (greedy decoding).
+    """Continuous-batching server over one engine (greedy or sampled).
 
     ``batch_slots`` concurrent decode lanes; ``segment_steps`` decode steps
     between admission points; ``prefill_bucket`` is the uniform decode-base
@@ -150,8 +157,7 @@ class ContinuousServer:
         if prefix_cache_slots > 0:
             raise _not_ported("the serving prefix cache (prefix_cache_slots)")
         rt = engine.retake
-        if rt.do_sample:
-            raise _not_ported("sampled serving (do_sample)")
+        self.sampler = Sampler.from_config(rt, getattr(engine, "noise_fn", None))
         self.engine = engine
         self.cfg = engine.cfg
         self.stats: Dict[str, int] = {
@@ -170,10 +176,7 @@ class ContinuousServer:
                 f"decode_attn_impl must be 'auto', 'xla' or 'pallas', got {decode_attn_impl!r}"
             )
         if decode_attn_impl == "auto":
-            group = self.cfg.num_attention_heads // self.cfg.num_key_value_heads
-            on_cuda = torch.device(engine.device).type == "cuda"
-            fits = group <= decode_gapped.MAX_GROUP
-            decode_attn_impl = "pallas" if on_cuda and fits else "xla"
+            decode_attn_impl = batched_decode_impl(self.cfg, engine.device)
         self.decode_attn_impl = decode_attn_impl
         self.staged: List[torch.Tensor] = []  # un-harvested segment tokens [seg, B]
         self.emitted = np.zeros(self.b, np.int32)
@@ -216,6 +219,8 @@ class ContinuousServer:
         self.emitted = np.zeros(self.b, np.int32)  # segment steps per tenant
         self.staged = []
         self.slot_max = np.full(self.b, self.max_new, np.int32)
+        # sampling: slot b's request-own step = global step - step_off[b]
+        self.step_off = np.zeros(self.b, np.int32)
 
     def _admit(self, slot: int, st: PrefillState, req_id: int):
         if st.attn_need > self.p_bucket:
@@ -241,6 +246,7 @@ class ContinuousServer:
         self.dec_start[slot] = self.p_bucket + self.f_global
         self.cur_dev[slot] = st.first_token_host
         self.emitted[slot] = 0
+        self.step_off[slot] = self.f_global
         self.done[slot] = st.first_token_host == self.cfg.eos_token_id
 
     def _segment(self) -> None:
@@ -251,10 +257,10 @@ class ContinuousServer:
         tokens = _decode_loop_batch(
             self.engine.model, self.cfg, self.k_all, self.v_all,
             _dev(self.base_t, dev), _dev(self.pos_rest, dev), _dev(self.final_len, dev),
-            self.p_bucket, self.cur_dev, self.seg,
+            self.p_bucket, self.cur_dev, self.seg, sampler=self.sampler,
             dec_start=_dev(self.dec_start, dev), i0=self.f_global,
             done0=_dev(self.done, dev), attn_impl=self.decode_attn_impl,
-            ks_all=self.ks_all, vs_all=self.vs_all,
+            ks_all=self.ks_all, vs_all=self.vs_all, step_off=self.step_off,
         )
         self.f_global += self.seg
         self.cur_dev = tokens[-1].clone()
@@ -311,6 +317,7 @@ class ContinuousServer:
         # row0 = base + F: F resets, fold the consumed F into the bases
         self.base_t = self.base_t + np.int32(self.f_global)
         self.pos_rest = self.pos_rest + np.int32(self.f_global)
+        self.step_off = self.step_off - np.int32(self.f_global)  # own = i - step_off
         self.f_global = 0
 
     # ---------- the serving loop ----------

@@ -77,15 +77,46 @@ def test_flash_prefill_kernel_matches_plain(cuda, s, cache_len, valid_len, group
     assert err <= _bf16_tol(want), (err, _bf16_tol(want))
 
 
+# K1 at the shapes of the per-question paths (S, budget, cache_len,
+# valid_len): a prompt-guided block (a 2304-row chunk with the 49-row
+# question after it, full and as a short last chunk of 1999 + 49 rows) and a
+# spec-decode verify chunk of draft + 1 = 9 rows over an empty, a ~32k and a
+# full cache (S far below the 128-row query block)
+K1_PATH_CASES = [(2353, 40960, 20000, 2353), (2353, 4096, 3001, 2048), (2353, 4096, 0, 2353),
+                 (9, 32768, 32000, 9), (9, 32768, 0, 9), (9, 4096, 4096, 9), (9, 4096, 1001, 5)]
+
+
+@pytest.mark.parametrize("s,budget,cache_len,valid_len", K1_PATH_CASES)
+@pytest.mark.parametrize("group", [6, 7])
+def test_flash_prefill_kernel_matches_plain_at_path_shapes(cuda, s, budget, cache_len, valid_len,
+                                                           group):
+    # the same tolerance as test_flash_prefill_kernel_matches_plain
+    rng = np.random.default_rng(s + cache_len + valid_len + group)
+    kv, d = 2, 128
+    q = _bf16(rng, (kv * group, s, d), cuda)
+    kc, vc = _bf16(rng, (kv, budget, d), cuda), _bf16(rng, (kv, budget, d), cuda)
+    kn, vn = _bf16(rng, (kv, s, d), cuda), _bf16(rng, (kv, s, d), cuda)
+    cl, vl = _i32(cache_len, cuda), _i32(valid_len, cuda)
+    got = flash_prefill.flash_prefill_attention(q, kc, vc, cl, kn, vn, vl)
+    again = flash_prefill.flash_prefill_attention(q, kc, vc, cl, kn, vn, vl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = flash_prefill.flash_prefill_attention_plain(q, kc, vc, cl, kn, vn, vl)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _bf16_tol(want), (err, _bf16_tol(want))
+
+
 # K2 cases (KV, G, S, valid_len, D): 2B (12/2) and 7B (28/4) heads at the
 # main path's S = 2304, full and short; D = 64; G = 1 and G = 16 (two heads
 # per CTA of an 8-CTA cluster); S below one 64-row tile (40); S no multiple
-# of 64 or 128 (300) with valid_len 257; valid_len = 1
+# of 64 or 128 (300) with valid_len 257; valid_len = 1; the prompt-guided
+# block (2304 + 49 rows, full and as a short last chunk of 1999 + 49)
 K2_CASES = [(2, 6, 2304, 2304, 128), (2, 6, 2304, 1999, 128), (4, 7, 2304, 2304, 128),
             (4, 7, 2304, 1999, 128), (2, 6, 300, 257, 64), (2, 6, 2304, 1999, 64),
             (3, 1, 300, 257, 128), (2, 16, 300, 257, 128), (1, 16, 2304, 1999, 64),
             (2, 6, 40, 40, 128), (2, 6, 40, 17, 64), (2, 6, 300, 257, 128),
-            (2, 6, 256, 256, 128), (2, 6, 300, 1, 128), (4, 7, 40, 1, 64)]
+            (2, 6, 256, 256, 128), (2, 6, 300, 1, 128), (4, 7, 40, 1, 64),
+            (2, 6, 2353, 2353, 128), (2, 6, 2353, 2048, 128), (4, 7, 2353, 2048, 128)]
 
 
 @pytest.mark.parametrize("kv,g,s,valid_len,d", K2_CASES)
@@ -123,10 +154,13 @@ def test_pivot_scores_raises_on_what_the_kernel_does_not_take(cuda, h, kv, d):
 # processor's largest frame; D = 64 beside the model's 80 (1196 at D = 64
 # and 2 heads failed in every row past the first key tile when a Q fragment
 # was left unwritten); S = 64 with one head, one key tile and no masked key
-# (the descriptor check)
+# (the descriptor check); still images at T = 1 with the model's 16 heads:
+# 448x448 (32x32 = 1024), 644x364 (46x26 = 1196) and 36x50 = 1800 (no
+# multiple of the 192-row block)
 K3_CASES = [(3, 4, 576, 80), (2, 16, 576, 80), (3, 4, 100, 80), (3, 4, 1196, 80),
             (1, 4, 5120, 80), (2, 16, 576, 64), (3, 4, 100, 64), (3, 2, 1196, 64),
-            (1, 4, 5120, 64), (1, 1, 64, 80), (1, 1, 64, 64)]
+            (1, 4, 5120, 64), (1, 1, 64, 80), (1, 1, 64, 64),
+            (1, 16, 1024, 80), (1, 16, 1196, 80), (1, 16, 1800, 80)]
 
 
 @pytest.mark.parametrize("t,n,s,d", K3_CASES)

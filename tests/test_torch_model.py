@@ -258,12 +258,21 @@ def test_generate_matches_jax_engine(tiny, rng, attn_impl, conf):
 
 
 def test_engine_rejects_paths_not_ported(tiny):
+    """What is still not ported raises NotImplementedError: the "flash"
+    attention arm, MA-LLM visual compression, the server's vision-feature
+    and prefix caches, and its online mode."""
+    from retake_tpu_torch.runtime.serve import ContinuousServer
+
     cfg, _, model = tiny
     pcfg = port_cfg(cfg)
-    for rd in ({"do_sample": True}, {"attn_implementation": "flash"}, {"spec_decode": True}):
+    malm = {"longvideo_kwargs": {"visual_compression": True, "visual_compression_kwargs": {
+        "compression_ratio": 0.5, "compression_method": "MA-LLM"}}}
+    for rd in ({"attn_implementation": "flash"}, malm):
         with pytest.raises(NotImplementedError):
             Qwen2VLEngine(pcfg, model, RetakeConfig.from_dict(rd), device="cpu")
     engine = Qwen2VLEngine(pcfg, model, RetakeConfig(), device="cpu")
+    for kw in ({"vision_cache_slots": 1}, {"prefix_cache_slots": 1}):
+        with pytest.raises(NotImplementedError):
+            ContinuousServer(engine, **kw)
     with pytest.raises(NotImplementedError):
-        engine.generate(np.array([1, 2, 3]), pixel_values=np.zeros((4, 24)),
-                        image_grid_thw=np.array([[1, 2, 2]]))
+        ContinuousServer(engine).start_online()

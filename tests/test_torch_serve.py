@@ -578,9 +578,5 @@ def test_serve_rejects_paths_not_ported(tiny, served):
             ContinuousServer(eng, **kw)
     with pytest.raises(NotImplementedError):
         ContinuousServer(eng).start_online()
-    fake = type("E", (), {"cfg": eng.cfg, "device": eng.device,
-                          "retake": RetakeConfig.from_dict({"do_sample": True})})()
-    with pytest.raises(NotImplementedError):
-        ContinuousServer(fake)
     with pytest.raises(ValueError):
         ContinuousServer(eng).run([dict(reqs[0]), dict(reqs[1])], arrival_times=[1.0, 0.0])
