@@ -26,7 +26,8 @@ Phases (each prints; any failure raises and exits non-zero):
      and K4's device time per call
      (CUDA-graph replay); K1, K2
      and K3 at the shapes of
-     phases 12-16
+     phases 12-16, K1 at phase
+     17's recapture text step
   4. end to end, with kernel      10. 7B W8A8 + int8-KV request: launch
      launch counts                    counts, bit-exact repeat (cache and
   5. the same request again,          scales), kernel vs plain path
@@ -49,6 +50,21 @@ Phases (each prints; any failure raises and exits non-zero):
  16. sampling: a seed repeats bit-exactly, temperature 1e-4 gives greedy,
      top-k / top-p run; sampled generate_batch (3 requests) and the phase-7
      server mix sampled, with K4 launches and agreement with sequential
+ 17. online serving (``start_online``) with the vision-feature and prefix
+     caches: two videos, six questions from two submitting threads, a
+     forced budget recapture, a full backlog (queue.Full), a malformed and
+     an expired request; stats, launches per admission kind, K4 in every
+     segment, agreement with ``generate(prefix=...)``
+ 18. the HTTP front end on 127.0.0.1: /healthz, a question about a JPEG
+     frame directory (miss: frames, ViT, capture), the same question again
+     (prefix hit: no frame loading, no K3) blocking and streamed, /metrics,
+     503 on a full backlog
+ 19. the "flash" attention arm (configs/retake_demo.yaml's) on the phase-4
+     request against "pallas": first logits, PivotKV-kept entries, no K1 or
+     K2, each arm's TTFT; generate_batch under "flash" (K4)
+ 20. MA-LLM and MA-LLM-hard (ratio 0.5, patch_sync off and on) at 128
+     frames: feature shapes, bit-exact repeat, K3 launches, a request;
+     malm_compress's time at 64 merges
 
 The last two stdout lines are the kernels record and
 ``{"ok": true, "device": {...}}``; before them, the card's name and power
@@ -71,6 +87,8 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -165,6 +183,13 @@ K1_FILLS = (0, 8192, 20000, 32000)
 # 644x364 (46x26) in the requests, 36x50 (S = 1800, no multiple of K3's
 # 192-row block) beside 32x32 in phase 3
 PG_ROWS, PG_SHORT, SPEC_ROWS = 2304 + 49, 1999 + 49, 8 + 1
+# phase 17's recapture: video A (256 frames) captures 18449 cache entries
+# in a 24576-key budget; its last question is as long as that slack (6127
+# ids after the vision-end token), so the hit after the recapture runs one
+# text step of 6128 valid rows, padded to 6144, over the 18449 entries in
+# the recapture's budget of 32768. Phase 17 checks this shape against the
+# prefix the server captured; phase 3 holds K1 to its plain twin at it
+RECAP_ROWS, RECAP_VALID, RECAP_CACHE, RECAP_BUDGET = 6144, 6128, 18449, 32768
 IMAGE_GRIDS = [(1, 32, 32), (1, 46, 26)]
 IMAGE_K3_GRIDS = [(32, 32), (36, 50)]
 SAMPLED_BATCH_FRAMES = (64, 128, 256)  # phase 16's sampled generate_batch
@@ -173,6 +198,15 @@ SAMPLED_BATCH_FRAMES = (64, 128, 256)  # phase 16's sampled generate_batch
 # near-ties (reference engine.py:364-368); the bound is the token agreement
 # tools/gate_serve_decode_stage.py:135 requires of two decode paths
 SPEC_MIN_AGREEMENT = 0.7
+# phases 17-18: the online server and the HTTP front end over SERVE_KW.
+# Every wait on a thread, future or socket is bounded by WAIT_S. The served
+# streams are held to generate(prefix=...) of the same question by token
+# agreement, the bound tools/gate_serve_decode_stage.py uses (phase 16 read
+# 0.969-1.0 for the server against sequential decode). HTTP_FRAMES: JPEG
+# frames written for the HTTP phase (448x252, sampled at the config's 4 fps)
+WAIT_S = 300.0
+ONLINE_MIN_AGREEMENT = 0.9
+HTTP_FRAMES = 64
 
 
 def log(msg: str) -> None:
@@ -931,9 +965,10 @@ def phase_weight_only(cfg, model, dev, seed: int) -> None:
 
 
 def phase_kernels_new_shapes(dev, records):
-    """The shapes phases 12-16 give the kernels: K1 and K2 at the
+    """The shapes phases 12-17 give the kernels: K1 and K2 at the
     prompt-guided block (S = 2304 + 49 rows, a full and a short last chunk),
-    K1 at a spec-decode verify chunk (S = 9) over a ~32k cache, K3 at T = 1
+    K1 at a spec-decode verify chunk (S = 9) over a ~32k cache and at phase
+    17's recapture text step (S = 6144 over 18449 entries), K3 at T = 1
     for a 448x448 image (S = 1024) and a 36x50 grid (S = 1800, no multiple of
     the kernel's 192-row block). Error against the plain twin, bitwise
     repeat, CUDA-event medians, bound and the library call's time, added to
@@ -953,12 +988,17 @@ def phase_kernels_new_shapes(dev, records):
     kc, vc = bf16(gen, (kv, budget, d), dev), bf16(gen, (kv, budget, d), dev)
     for key in ("K1", "K2", "K3"):
         records[key]["new_shapes"] = []
-    # (what, S, (cache_len, valid_len) error cases, the timed case)
-    k1_cases = [("prompt-guided block", PG_ROWS, [(0, PG_ROWS), (20000, PG_ROWS),
-                                                (20000, PG_SHORT)], (20000, PG_ROWS)),
-                ("spec-decode verify chunk", SPEC_ROWS, [(0, SPEC_ROWS), (31999, SPEC_ROWS),
-                                                       (32000, SPEC_ROWS)], (32000, SPEC_ROWS))]
-    for what, s, cases, (cl_t, vl_t) in k1_cases:
+    # (what, S, cache budget, (cache_len, valid_len) error cases, the timed case)
+    k1_cases = [("prompt-guided block", PG_ROWS, budget, [(0, PG_ROWS), (20000, PG_ROWS),
+                                                        (20000, PG_SHORT)], (20000, PG_ROWS)),
+                ("spec-decode verify chunk", SPEC_ROWS, budget,
+                 [(0, SPEC_ROWS), (31999, SPEC_ROWS), (32000, SPEC_ROWS)], (32000, SPEC_ROWS)),
+                ("prefix recapture text step", RECAP_ROWS, RECAP_BUDGET,
+                 [(0, RECAP_VALID), (RECAP_CACHE, RECAP_VALID)], (RECAP_CACHE, RECAP_VALID))]
+    for what, s, budget_c, cases, (cl_t, vl_t) in k1_cases:
+        if kc.shape[1] != budget_c:
+            del kc, vc
+            kc, vc = bf16(gen, (kv, budget_c, d), dev), bf16(gen, (kv, budget_c, d), dev)
         q = bf16(gen, (h, s, d), dev)
         kn, vn = bf16(gen, (kv, s, d), dev), bf16(gen, (kv, s, d), dev)
         worst = 0.0
@@ -984,8 +1024,9 @@ def phase_kernels_new_shapes(dev, records):
         log(f"K1 {what} S={s} cache_len={cl_t}: kernel {t_k:.4f} ms plain {t_p:.3f} ms SDPA "
             f"({backend}) {t_l:.4f} ms; bound {b:.4f} ms ({by})")
         records["K1"]["new_shapes"].append(dict(
-            path=what, s=s, cache_len=cl_t, valid_len=vl_t, max_abs_err=worst, ms=t_k,
-            plain_ms=t_p, bound_ms=b, bound_by=by, library_ms=t_l, library_backend=backend))
+            path=what, s=s, budget=budget_c, cache_len=cl_t, valid_len=vl_t, max_abs_err=worst,
+            ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by, library_ms=t_l,
+            library_backend=backend))
         if s == PG_ROWS:  # K2 scores the same block's q / k
             worst = 0.0
             for valid_len in (PG_ROWS, PG_SHORT):
@@ -1265,6 +1306,484 @@ def phase_sampling(cfg, model, dev, args, greedy_tokens) -> tuple:
     return nb, serve
 
 
+# ---------- phases 17-20: the rest of serving, the flash arm, MA-LLM
+
+
+def submit_retrying(handle, req, on_tokens=None, wait_s: float = 300.0):
+    """``handle.submit`` that backs off while the backlog is full (a client
+    answered 503); returns (future, number of refusals)."""
+    import queue
+
+    refused, t_end = 0, time.perf_counter() + wait_s
+    while True:
+        try:
+            return handle.submit(req, on_tokens=on_tokens), refused
+        except queue.Full:
+            refused += 1
+            check(time.perf_counter() < t_end, "backlog never drained")
+            time.sleep(0.02)
+
+
+class Gate:
+    """Holds the serving worker inside one engine call (the first after
+    ``arm``) until ``release``, so a backlog can be filled on purpose."""
+
+    def __init__(self):
+        self.armed, self.entered, self.go = False, threading.Event(), threading.Event()
+
+    def wrap(self, fn):
+        def gated(*a, **kw):
+            if self.armed:
+                self.armed = False
+                self.entered.set()
+                check(self.go.wait(timeout=WAIT_S), "gate never released")
+            return fn(*a, **kw)
+
+        return gated
+
+
+def spy_calls(engine, record):
+    """Wrap the engine's entry points (instance attributes, so the server's
+    worker calls the wrappers) to record each call's kind and the kernel
+    launches made inside it. Only the worker launches kernels while the
+    server runs, so the deltas belong to the call."""
+    for name in ("generate", "encode_prefix", "encode_video"):
+        fn = getattr(engine, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            if kw.get("_capture_reserve") is not None:  # inside encode_prefix
+                return _fn(*a, **kw)
+            before = read_counts()
+            out = _fn(*a, **kw)
+            after = read_counts()
+            kind = _name if _name != "generate" else ("prefix" if kw.get("prefix") else "inline")
+            record.append((kind, {k: after[k] - before[k] for k in after}))
+            return out
+
+        setattr(engine, name, wrapped)
+
+
+def phase_online(cfg, model, dev, seed: int) -> dict:
+    """``start_online`` with both caches: video A (256 frames, key "a") gets
+    three questions of 48 ids and, once its prefix is captured, a fourth
+    with its own budget of 48 tokens that is as long as the capture's slack,
+    so its text step ends past the capture's cache budget (a budget rounds
+    up to 8192 and a text step pads to 128, so no budget of a few tens of
+    tokens could outgrow it): one recapture. Video B (128 frames, key "b")
+    gets two. Two threads submit A's and B's later questions while the
+    worker is held in A's first encode, so the backlog fills and one more
+    submission meets queue.Full; then a malformed request and one with
+    deadline_s 0. Checks the stats, each admission kind's launches (a prefix
+    hit: 28 K1, no K2 or K3), K4 in every segment, every budget, the
+    recapture's shape against phase 3's K1 case, each hit's first token
+    against ``engine.generate(prefix=...)`` and every stream's agreement
+    with it."""
+    from retake_tpu_torch.utils.config import RetakeConfig
+
+    import queue
+
+    from retake_tpu_torch.runtime.engine import TEXT_BUCKET, Qwen2VLEngine
+    from retake_tpu_torch.runtime.serve import ContinuousServer
+
+    engine = Qwen2VLEngine(cfg, model, RetakeConfig.from_dict(RETAKE_CONFIG), device=dev)
+    rng = np.random.default_rng(seed + 60)
+    ids_a, patches_a, grid_a = build_request(cfg, 256, dev, seed + 61)
+    ids_b, patches_b, grid_b = build_request(cfg, 128, dev, seed + 62)
+
+    def question(ids, n=48):
+        return np.concatenate([ids[:-48], rng.integers(10, 1000, size=n)]).astype(np.int64)
+
+    qa = [ids_a, question(ids_a), question(ids_a)]
+    qb = [ids_b, question(ids_b)]
+    req_a = [dict(input_ids=q, pixel_values_videos=patches_a, video_grid_thw=grid_a, video_key="a")
+             for q in qa]
+    req_b = [dict(input_ids=q, pixel_values_videos=patches_b, video_grid_thw=grid_b, video_key="b")
+             for q in qb]
+    server = ContinuousServer(engine, **SERVE_KW, vision_cache_slots=2, prefix_cache_slots=2,
+                              prefix_reserve_tokens=512)
+    calls, gate = [], Gate()
+    spy_calls(engine, calls)
+    engine.encode_video = gate.wrap(engine.encode_video)
+    futs = {}
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    handle = server.start_online(max_queue=4)
+    try:
+        gate.armed = True
+        futs["a0"] = handle.submit(req_a[0])
+        check(gate.entered.wait(timeout=WAIT_S), "worker never reached A's encode")
+
+        refused = {}
+
+        def submitter(tag, reqs):
+            for i, r in reqs:
+                futs[f"{tag}{i}"], refused[f"{tag}{i}"] = submit_retrying(handle, r)
+
+        ta = threading.Thread(target=submitter, args=("a", [(1, req_a[1]), (2, req_a[2])]))
+        tb = threading.Thread(target=submitter, args=("b", list(enumerate(req_b))))
+        ta.start()
+        tb.start()
+        t_end = time.perf_counter() + WAIT_S
+        while handle._q.qsize() < 4:
+            check(time.perf_counter() < t_end, "backlog never filled")
+            time.sleep(0.005)
+        try:
+            handle.submit(dict(req_b[1]))
+            full = False
+        except queue.Full:
+            full = True
+        gate.go.set()
+        futs["bad"], _ = submit_retrying(handle, {"input_ids": "not-an-array"})
+        futs["late"], _ = submit_retrying(handle, dict(req_b[1], deadline_s=0.0))
+        # A's long question, sized by the prefix the worker captured (a
+        # hit's LRU bump pops the entry for a moment: read until it is there)
+        t_end = time.perf_counter() + WAIT_S
+        while (vp0 := server._prefix_cache.get("a")) is None:
+            check(time.perf_counter() < t_end, "A's prefix never captured")
+            time.sleep(0.005)
+        steps_a, fill_a, budget_a = len(vp0.plan_sig), vp0.final_len, vp0.budget
+        qa.append(question(ids_a, budget_a - fill_a))
+        req_a.append(dict(req_a[0], input_ids=qa[3], max_new_tokens=48))
+        submitter("a", [(3, req_a[3])])
+        for t in (ta, tb):
+            t.join(timeout=WAIT_S)
+            check(not t.is_alive(), "a submitting thread hung")
+        results = {k: f.result(timeout=WAIT_S) for k, f in futs.items()}
+    finally:
+        gate.go.set()
+        handle.close(timeout=WAIT_S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    check(not handle._thread.is_alive(), "close() did not join the worker")
+    st = dict(server.stats)
+    log(f"[17] A's capture: {steps_a} steps, cache {fill_a} of budget {budget_a}; its long "
+        f"question {len(qa[3]) - len(ids_a) + 48} ids")
+    log(f"[17] online: {len(results)} results in {wall:.3f} s; queue.Full at max_queue 4: {full}; "
+        f"refusals while submitting {sum(refused.values())}; stats {json.dumps(st)}")
+    log(f"[17] launches {launches}")
+    check(full, "no queue.Full at max_queue")
+    check(results["bad"].error and results["bad"].cancelled and not len(results["bad"].tokens),
+          results["bad"])
+    check(results["late"].cancelled and not len(results["late"].tokens) and not results["late"].error,
+          results["late"])
+    want = {"requests_failed": 1, "requests_rejected_deadline": 1, "requests_admitted": 6,
+            "requests_finished": 6, "prefix_cache_misses": 3, "prefix_budget_recaptures": 1,
+            "prefix_mismatch_fallbacks": 1, "vision_cache_misses": 2, "vision_cache_hits": 4,
+            "prefix_capture_failures": 0, "requests_cancelled": 0}
+    check(all(st[k] == v for k, v in want.items()) and st["prefix_cache_hits"] >= 3, (st, want))
+    seg = SERVE_KW["segment_steps"]
+    check(launches["K4"] == cfg.num_hidden_layers * seg * st["segments_dispatched"] > 0,
+          ("K4 in every segment", launches, st["segments_dispatched"]))
+    vp_a, steps_b = server._prefix_cache["a"], len(server._prefix_cache["b"].plan_sig)
+    recap = (vp_a.final_len, vp_a.budget, len(qa[3]) - vp_a.split)
+    check(recap == (RECAP_CACHE, RECAP_BUDGET, RECAP_VALID)
+          and -(-RECAP_VALID // TEXT_BUCKET) * TEXT_BUCKET == RECAP_ROWS,
+          ("the recapture's text step is not phase 3's K1 case", recap))
+    depth, layers = cfg.vision.depth, cfg.num_hidden_layers
+    k3_encode = [depth * math.ceil(int(g[0][0]) / RETAKE_CONFIG["longvideo_kwargs"]["frame_chunk_size"])
+                 for g in (grid_a, grid_b)]
+    kinds = {}
+    for kind, n in calls:
+        kinds.setdefault(kind, []).append(n)
+        if kind == "prefix":  # one 49- or 6128-row text step over the captured cache
+            check(n["K1"] == layers and n["K2"] == n["K3"] == 0, (kind, n))
+        elif kind == "encode_video":
+            check(n["K3"] in k3_encode and n["K1"] == 0, (kind, n))
+        elif kind == "encode_prefix":  # the features come from the vision cache
+            check(n["K3"] == 0 and n["K1"] in (layers * steps_a, layers * steps_b), (kind, n))
+    log("[17] launches per admission kind: " + json.dumps(
+        {k: [{x: y for x, y in n.items() if y} for n in v] for k, v in kinds.items()}))
+    check(len(kinds.get("prefix", [])) == 6 and len(kinds["encode_video"]) == 2
+          and len(kinds["encode_prefix"]) == 3 and "inline" not in kinds,
+          {k: len(v) for k, v in kinds.items()})
+    for name in ("generate", "encode_prefix", "encode_video"):
+        del engine.__dict__[name]
+
+    # each stream against engine.generate(prefix=...) of the same question
+    agree, hit_ttft, hit_prefill = {}, [], []
+    for tag, reqs in (("a", req_a), ("b", req_b)):
+        vp = server._prefix_cache[tag]
+        for i, r in enumerate(reqs):
+            res = results[f"{tag}{i}"]
+            budget = r.get("max_new_tokens", SERVE_KW["max_new_tokens"])
+            ref = engine.generate(r["input_ids"], prefix=vp, max_new_tokens=budget)
+            check(not res.cancelled and len(res.tokens) == budget, (tag, i, len(res.tokens)))
+            check(res.tokens[0] == ref.tokens[0], ("first token vs generate(prefix=)", tag, i))
+            agree[f"{tag}{i}"] = round(token_agreement(res.tokens, ref.tokens), 4)
+            if i:
+                hit_ttft.append(res.ttft_s)
+                hit_prefill.append(res.first_token_s - res.prefill_start_s)
+    log(f"[17] agreement with generate(prefix=) {agree} (bound {ONLINE_MIN_AGREEMENT}); prefix "
+        f"admissions: prefill {min(hit_prefill):.3f}-{max(hit_prefill):.3f} s, TTFT from submission "
+        f"{min(hit_ttft):.3f}-{max(hit_ttft):.3f} s (queue wait included); captures: A "
+        f"{results['a0'].ttft_s:.3f} s, B {results['b0'].ttft_s:.3f} s")
+    check(min(agree.values()) >= ONLINE_MIN_AGREEMENT, agree)
+    del server, engine, results, futs, req_a, req_b, patches_a, patches_b
+    torch.cuda.empty_cache()
+    return launches
+
+
+class ByteTokenizer:
+    """A byte-level stand-in for the Qwen2 tokenizer (none is in the repo):
+    byte b is id 1000 + b."""
+
+    def encode(self, s):
+        return [1000 + b for b in s.encode("utf-8")]
+
+    def decode(self, ids, **kw):
+        return bytes(int(i) - 1000 for i in ids if 1000 <= int(i) < 1256).decode("utf-8", "replace")
+
+
+def write_frames(root: str, n: int, seed: int) -> None:
+    """``n`` 448x252 JPEG frames (%06d.jpg) of a drifting random texture."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 255, size=(63, 112, 3), dtype=np.uint8).repeat(4, 0).repeat(4, 1)
+    for i in range(n):
+        Image.fromarray(np.roll(base, 3 * i, axis=1)).save(os.path.join(root, f"{i:06d}.jpg"),
+                                                            quality=90)
+
+
+def phase_http(cfg, model, dev, seed: int) -> dict:
+    """``RetakeHTTPServer`` on 127.0.0.1 (port 0) over the 2B engine with both
+    caches: /healthz; a question about a 64-frame JPEG directory (a miss:
+    frames loaded, processor, K3, capture), the same question again (a
+    prefix hit: no frame loading, no K3, 28 K1) blocking and streamed (the
+    stream concatenates to the done event's tokens); /metrics against the
+    server's stats; a 503 with Retry-After on a full backlog."""
+    from retake_tpu_torch.utils.config import RetakeConfig
+
+    import urllib.error
+    import urllib.request
+
+    from retake_tpu_torch.data.processor import Qwen2VLProcessor
+    from retake_tpu_torch.runtime import http_server
+    from retake_tpu_torch.runtime.engine import Qwen2VLEngine
+
+    rt = RetakeConfig.from_dict(RETAKE_CONFIG)
+    engine = Qwen2VLEngine(cfg, model, rt, device=dev)
+    proc = Qwen2VLProcessor(ByteTokenizer(), vision_start_token_id=cfg.vision_start_token_id,
+                            vision_end_token_id=cfg.vision_end_token_id,
+                            video_token_id=cfg.video_token_id, image_token_id=cfg.image_token_id)
+    loads = {"n": 0}
+    fetch = http_server.fetch_video
+
+    def counting_fetch(*a, **kw):
+        loads["n"] += 1
+        return fetch(*a, **kw)
+
+    http_server.fetch_video = counting_fetch
+    gate = Gate()
+    engine.generate = gate.wrap(engine.generate)
+    srv = http_server.RetakeHTTPServer(engine, proc, rt, host="127.0.0.1", port=0, max_queue=1,
+                                       **SERVE_KW, vision_cache_slots=2, prefix_cache_slots=2)
+
+    def post(body):
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.port}/v1/generate",
+                                     data=json.dumps(body).encode(), method="POST",
+                                     headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=WAIT_S) as r:
+            raw, ctype = r.read(), r.headers["Content-Type"]
+        wall = time.perf_counter() - t
+        if ctype.startswith("text/event-stream"):
+            return [json.loads(x[6:]) for x in raw.split(b"\n\n") if x.startswith(b"data: ")], wall
+        return json.loads(raw), wall
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}{path}", timeout=WAIT_S) as r:
+            return json.loads(r.read())
+
+    with tempfile.TemporaryDirectory(prefix="retake_frames_") as frames:
+        write_frames(frames, HTTP_FRAMES, seed + 70)
+        body = {"question": "What happens in the video? Answer with the option's letter.",
+                "video_path": frames, "extraction_fps": rt.sample_fps}
+        srv.start()
+        try:
+            health = get("/healthz")
+            check(health["ok"] and health["batch_slots"] == SERVE_KW["batch_slots"], health)
+            zero_counts()
+            miss, miss_wall = post(body)
+            c1 = read_counts()
+            hit, hit_wall = post(body)
+            c2 = read_counts()
+            n_miss, n_hit = c1, {k: c2[k] - c1[k] for k in c2}
+            stream, _ = post(dict(body, stream=True))
+            metrics, stats = get("/metrics"), dict(srv.server.stats)
+            # a full backlog: the worker held in an admission, one request queued
+            gate.armed = True
+            out = {}
+
+            def background(key):
+                out[key] = post({"question": f"Question {key}?"})[0]
+
+            t1 = threading.Thread(target=background, args=("held",))
+            t1.start()
+            check(gate.entered.wait(timeout=WAIT_S), "worker never reached the held request")
+            t2 = threading.Thread(target=background, args=("queued",))
+            t2.start()
+            t_end = time.perf_counter() + WAIT_S
+            while srv.handle._q.qsize() < 1:
+                check(time.perf_counter() < t_end, "the HTTP backlog never filled")
+                time.sleep(0.005)
+            try:
+                post({"question": "One too many?"})
+                code, retry = 200, None
+            except urllib.error.HTTPError as e:
+                code, retry = e.code, e.headers["Retry-After"]
+            gate.go.set()
+            for t in (t1, t2):
+                t.join(timeout=WAIT_S)
+                check(not t.is_alive(), "an HTTP client thread hung")
+        finally:
+            gate.go.set()
+            srv.shutdown(timeout=WAIT_S)
+            http_server.fetch_video = fetch
+        torch.cuda.synchronize()
+        launches = read_counts()
+    check(srv.handle is None and not srv.server._slot_req, "HTTP server did not stop")
+    depth, layers = cfg.vision.depth, cfg.num_hidden_layers
+    streamed = [t for e in stream if not e.get("done") for t in e["tokens"]]
+    done = stream[-1]
+    log(f"[18] HTTP: miss (frames loaded, ViT, capture) TTFT {miss['ttft_s']:.3f} s, POST wall "
+        f"{miss_wall:.3f} s, launches {n_miss}; prefix hit TTFT {hit['ttft_s']:.3f} s, POST wall "
+        f"{hit_wall:.3f} s, launches {n_hit}; frame loads {loads['n']}; stream: {len(stream) - 1} "
+        f"chunks; 503 on a full backlog: {code} (Retry-After {retry})")
+    check(loads["n"] == 1, ("frame loads", loads))
+    check(n_miss["K3"] == depth * math.ceil(HTTP_FRAMES / 2 / 128) and n_miss["K1"] > layers,
+          n_miss)
+    check(n_hit["K3"] == 0 and n_hit["K1"] == layers and n_hit["K2"] == 0, n_hit)
+    budget = SERVE_KW["max_new_tokens"]
+    for res in (miss, hit, done):
+        check(len(res["tokens"]) == budget and not res["cancelled"] and "error" not in res, res)
+    check(streamed == done["tokens"] and done["done"], "stream chunks vs the done event")
+    agree = token_agreement(hit["tokens"], done["tokens"])
+    check(hit["tokens"][0] == done["tokens"][0] and agree >= ONLINE_MIN_AGREEMENT,
+          ("blocking vs streamed", agree))
+    check({k: metrics[k] for k in stats} == stats, (metrics, stats))
+    check(metrics["prefix_cache_entries"] == 1 and metrics["vision_cache_entries"] == 1, metrics)
+    check(code == 503 and retry, (code, retry))
+    for key in ("held", "queued"):
+        check(len(out[key]["tokens"]) == budget and "error" not in out[key], out[key])
+    check(launches["K4"] > 0, launches)
+    log(f"[18] blocking vs streamed agreement {agree:.4f}; launches {launches}; metrics "
+        f"{json.dumps(metrics)}")
+    del srv, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_flash(cfg, model, dev, args) -> dict:
+    """The phase-4 request under ``attn_implementation: "flash"`` (the
+    value of configs/retake_demo.yaml) against "pallas" on the same weights
+    (first logits, PivotKV-kept entries), no K1 or K2 launch and the K3
+    launches of "pallas"; each arm's TTFT in this call; then
+    ``generate_batch`` of three requests under "flash", through K4."""
+    from retake_tpu_torch.utils.config import RetakeConfig
+
+    from retake_tpu_torch.runtime.engine import Qwen2VLEngine
+
+    ids, patches, grid = build_request(cfg, args.frames, dev, args.seed)
+    out, n, ttft = {}, {}, {}
+    for impl in ("pallas", "flash", "flash"):
+        eng = Qwen2VLEngine(cfg, model, RetakeConfig.from_dict(dict(RETAKE_CONFIG,
+                                                               attn_implementation=impl)), device=dev)
+        zero_counts()
+        res = eng.generate(ids, patches, grid, max_new_tokens=MAX_NEW_TOKENS)
+        n[impl] = read_counts()
+        ttft.setdefault(impl, []).append(round(res.prefill_seconds, 3))
+        out[impl] = res
+    a, b = out["flash"], out["pallas"]
+    rel = float(np.abs(a.first_logits - b.first_logits).max() / np.abs(b.first_logits).max())
+    kept = kept_agreement(a.cache, b.cache, a.cache_fill)
+    log(f"[19] flash arm, {args.frames} frames: TTFT flash {ttft['flash']} s (cold, warm) vs pallas "
+        f"{ttft['pallas']} s (warm); launches flash {n['flash']}, pallas {n['pallas']}; first "
+        f"logits rel max|diff| {rel:.4f} (bound {E2E_REL_LOGIT_TOL}), kept entries in common "
+        f"{kept:.4f} (bound {E2E_MIN_KEPT_AGREEMENT}); tokens {a.tokens[:4].tolist()} / "
+        f"{b.tokens[:4].tolist()}")
+    check(np.isfinite(a.first_logits).all() and a.cache_fill == b.cache_fill == a.cache_len,
+          (a.cache_fill, b.cache_fill))
+    check(n["flash"]["K1"] == n["flash"]["K2"] == 0 and n["flash"]["K3"] == n["pallas"]["K3"] > 0,
+          n)
+    check(rel <= E2E_REL_LOGIT_TOL and kept >= E2E_MIN_KEPT_AGREEMENT, (rel, kept))
+    del out, a, b, patches
+    torch.cuda.empty_cache()
+
+    eng = Qwen2VLEngine(cfg, model, RetakeConfig.from_dict(dict(RETAKE_CONFIG,
+                                                           attn_implementation="flash")), device=dev)
+    reqs = []
+    for i, frames in enumerate(SAMPLED_BATCH_FRAMES):
+        r_ids, r_patches, r_grid = build_request(cfg, frames, dev, args.seed + 80 + i)
+        reqs.append(dict(input_ids=r_ids, pixel_values_videos=r_patches, video_grid_thw=r_grid))
+    zero_counts()
+    t0 = time.perf_counter()
+    batch = eng.generate_batch(reqs, max_new_tokens=MAX_NEW_TOKENS)
+    wall = time.perf_counter() - t0
+    nb = read_counts()
+    steps = max(len(x.tokens) for x in batch) - 1
+    log(f"[19] flash generate_batch ({list(SAMPLED_BATCH_FRAMES)} frames) in {wall:.3f} s: "
+        f"launches {nb}; tokens {[x.tokens[:4].tolist() for x in batch]}")
+    check(nb["K1"] == nb["K2"] == 0 and nb["K4"] >= cfg.num_hidden_layers * steps > 0, (nb, steps))
+    check(all(len(x.tokens) >= 1 and np.isfinite(x.first_logits).all() for x in batch), "batch")
+    del eng, reqs, batch
+    torch.cuda.empty_cache()
+    return {"request": n["flash"], "generate_batch": nb}
+
+
+def phase_malm(cfg, model, dev, seed: int) -> dict:
+    """MA-LLM and MA-LLM-hard at 128 frames, compression ratio 0.5, with
+    patch_sync off and on: features of shape [tgt * hw, d], a bit-exact
+    repeat, one K3 launch per ViT block, a request through them; and
+    ``malm_compress``'s time (CUDA events) at 64 merges."""
+    from retake_tpu_torch.utils.config import RetakeConfig
+
+    from retake_tpu_torch.ops import dpselect
+    from retake_tpu_torch.runtime.engine import Qwen2VLEngine
+
+    ids, patches, grid = build_request(cfg, 128, dev, seed + 90)
+    t = int(grid[0][0])
+    hw = int(grid[0][1] * grid[0][2]) // cfg.vision.spatial_merge_size**2
+    launches = {}
+    for method in ("MA-LLM", "MA-LLM-hard"):
+        for sync in (False, True):
+            rd = json.loads(json.dumps(RETAKE_CONFIG))
+            rd["longvideo_kwargs"]["visual_compression_kwargs"].update(
+                compression_method=method, compression_ratio=0.5, patch_sync=sync)
+            eng = Qwen2VLEngine(cfg, model, RetakeConfig.from_dict(rd), device=dev)
+            zero_counts()
+            f1 = eng.encode_video(patches, grid)
+            n = read_counts()
+            f2 = eng.encode_video(patches, grid)
+            res = eng.generate(ids, video_features=f1, max_new_tokens=MAX_NEW_TOKENS)
+            tag = f"{method} sync={sync}"
+            launches[tag] = n
+            log(f"[20] {tag}: features {tuple(f1.embeds.shape)} (t {f1.t} -> {f1.tgt}), repeat "
+                f"bit-exact {torch.equal(f1.embeds, f2.embeds)}, launches {n}; request: "
+                f"{res.input_len} tokens, cache {res.cache_fill}, TTFT {res.prefill_seconds:.3f} s, "
+                f"tokens {res.tokens[:4].tolist()}")
+            check(f1.tgt == t // 2 and tuple(f1.embeds.shape) == (f1.tgt * hw, cfg.hidden_size),
+                  f1.embeds.shape)
+            check(torch.equal(f1.embeds, f2.embeds), (tag, "repeat"))
+            check(bool(torch.isfinite(f1.embeds.float()).all()), (tag, "finite"))
+            check(n["K3"] == cfg.vision.depth * -(-t // 128) and n["K1"] == 0, n)
+            check(res.input_len == len(ids) - (t - f1.tgt) * hw and np.isfinite(res.first_logits).all()
+                  and res.cache_fill == res.cache_len, (tag, res.input_len, res.cache_fill))
+            del f1, f2, res, eng
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 91)
+    bank = bf16(gen, (128, hw, cfg.hidden_size), dev)
+    ms = {sync: cuda_ms(lambda s=sync: dpselect.malm_compress(bank, 64, sync=s), reps=5)
+          for sync in (False, True)}
+    log(f"[20] malm_compress, bank {tuple(bank.shape)} bf16 -> 64 frames (64 merges): "
+        f"{ms[False]:.3f} ms per patch, {ms[True]:.3f} ms synced (CUDA events, median of 5)")
+    del bank, patches
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=512, help="raw video frames (2048 = bench)")
@@ -1346,6 +1865,25 @@ def main() -> int:
     paths["16 generate_batch"], paths["16 server"] = phase_sampling(cfg, model, dev, args, greedy)
     t_new = time.perf_counter() - t_new
     log(f"[12-16] per-question paths: {t_new:.1f} s")
+
+    # 17-20. the rest of serving (online mode with both caches, HTTP), the
+    # "flash" attention arm, MA-LLM compression; each path's launches are
+    # read around it
+    t_rest, walls = time.perf_counter(), []
+    paths["17"] = phase_online(cfg, model, dev, args.seed)
+    walls.append(time.perf_counter())
+    paths["18"] = phase_http(cfg, model, dev, args.seed)
+    walls.append(time.perf_counter())
+    flash = phase_flash(cfg, model, dev, args)
+    paths["19"], paths["19 generate_batch"] = flash["request"], flash["generate_batch"]
+    walls.append(time.perf_counter())
+    for tag, n in phase_malm(cfg, model, dev, args.seed).items():
+        paths[f"20 {tag}"] = n
+    walls.append(time.perf_counter())
+    each = np.diff([t_rest] + walls)
+    t_rest = walls[-1] - t_rest
+    log(f"[17-20] serving, flash, MA-LLM: {t_rest:.1f} s (" + ", ".join(
+        f"{p}: {w:.1f} s" for p, w in zip(range(17, 21), each)) + ")")
     del model
     torch.cuda.empty_cache()
 
@@ -1381,7 +1919,7 @@ def main() -> int:
         for key in ("K1", "K1-int8", "K2", "K3", "K4", "K4-int8")
     ]}
     log(f"[end] chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s (phases 12-16 "
-        f"{t_new:.1f} s)")
+        f"{t_new:.1f} s, 17-20 {t_rest:.1f} s)")
     log(smi)
     print(json.dumps(kernel_line))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,8 @@ Package map:
   models/qwen2_vl/  config dataclasses, weights (random init, int8 on the
                     device, JAX bridge), ``VisionTower`` / ``TextDecoder`` /
                     ``Qwen2VLModel``
-  ops/              M-RoPE/YaRN, attention, PivotKV, DPSelect (plain torch);
+  ops/              M-RoPE/YaRN, attention (and the blocked "flash" arm),
+                    PivotKV, DPSelect and MA-LLM (plain torch);
                     ``quantization.py``: int8 quantizers, weight-only and
                     W8A8 linears
   ops/cuda/         wrappers of the hand-written Hopper kernels (K1 prefill
@@ -21,10 +22,16 @@ Package map:
   csrc/             the CUDA C++ sources (sm_90a)
   runtime/          static KV cache (bf16 or int8); the chunked-prefill
                     engine (video, image and mixed prompts, prompt-guided
-                    compression, feature and prefix reuse across
-                    questions, greedy / sampled / speculative decode,
-                    batched decode); ``sampling.py``: the seeded sampler;
-                    ``serve.py``: the continuous-batching server
+                    compression, DPSelect / MA-LLM visual compression,
+                    feature and prefix reuse across questions, greedy /
+                    sampled / speculative decode, batched decode; the
+                    "pallas" / "flash" / "xla" attention arms);
+                    ``sampling.py``: the seeded sampler; ``serve.py``: the
+                    continuous-batching server with its vision-feature and
+                    prefix caches and its online mode;
+                    ``http_server.py``: the standard-library HTTP front end
+  data/             host video loading and the Qwen2-VL processor
+                    (jax-free copies of ``retake_tpu/data``)
   utils/            config surface, host positions, stage timing
 """
 

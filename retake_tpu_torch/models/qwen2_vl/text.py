@@ -11,17 +11,21 @@
   writes one block per layer at the running cache offset.
 * ``attn_impl="pallas"``: K1 (``ops/cuda/flash_prefill.py``) for chunk
   attention and K2 (``ops/cuda/pivot_scores.py``) for eviction scores, which
-  launch the CUDA kernels on CUDA tensors; ``"xla"``: the plain torch path
-  (masked full attention, ``pivotkv.eviction_scores``).
+  launch the CUDA kernels on CUDA tensors; ``"flash"``: the blocked
+  online-softmax chunk attention (``attention.flash_chunk_attention``, plain
+  torch) with the plain eviction scores; ``"xla"``: the plain torch path
+  (masked full attention, ``pivotkv.eviction_scores``). Single-token steps
+  take the append-free decode attention under ``"pallas"`` and ``"flash"``.
 * ``decode_step_batch`` runs one token for B slots of the gap-layout cache
-  ``[L, B, KV, S, D]``; its ``"pallas"`` attention is K4
+  ``[L, B, KV, S, D]``; its ``"pallas"`` and ``"flash"`` attention is K4
   (``ops/cuda/decode_gapped.py``), ``"xla"`` the masked full-bucket softmax.
 * int8: linears dispatch on int8 weights (``ops/quantization.qlinear``;
   ``act_quant`` = W8A8, prefill only: q/k/v and gate/up share one
   activation quantization). With an int8 KV cache the ``"pallas"`` prefill
   quantizes the chunk's k/v once and the same int8 blocks feed K1 and the
-  cache append (one rounding site); the ``"xla"`` arm attends with bf16
-  chunk keys and quantizes them at the append, as the JAX module does.
+  cache append (one rounding site); the ``"xla"`` and ``"flash"`` arms
+  attend with bf16 chunk keys and quantize them at the append, as the JAX
+  module does.
   The embedding and LM head may be int8 too.
 
 Numerics follow the JAX module: activations in the model dtype, fp32
@@ -213,6 +217,10 @@ def _layer(
         if compress:
             sums = pivot_scores.pivot_score_sums(q_s, k_s, valid_len)
             fused_scores = sums.sum(dim=0) / (kv_heads * (n_heads // kv_heads))
+    elif attn_impl == "flash":
+        attn_out = attn_ops.flash_chunk_attention(
+            q_rot, ck, cv, cache_len, k_rot, v, valid_len, k_scale=cks, v_scale=cvs
+        )
     else:
         attn_out = attn_ops.chunk_prefill_attention(
             q_rot, ck, cv, cache_len, k_rot, v, valid_len, cks, cvs
@@ -274,8 +282,8 @@ def decoder_chunk(
     cache is updated in place: each layer's block is written at offset
     ``length``, then ``length`` advances by keep_len (compress) or
     valid_len. ``act_quant``: W8A8 linears (int8 weights required)."""
-    if attn_impl not in ("xla", "pallas"):
-        raise NotImplementedError(f"attn_impl {attn_impl!r}")
+    if attn_impl not in ("xla", "pallas", "flash"):
+        raise ValueError(f"attn_impl must be 'xla', 'pallas' or 'flash', got {attn_impl!r}")
     dev = hidden.device
     inv_freq, attention_scaling = _inv_freq(cfg, str(dev))
     valid_len = _device_int(valid_len, dev)
@@ -337,7 +345,7 @@ def decode_step_batch(
     gap_start: int,  # uniform decode-region base column
     gap_filled: int,  # decode steps already written
     dec_start=None,  # [B] int32 per-slot decode-region start; None = gap_start
-    attn_impl: str = "xla",  # "pallas": K4; "xla": full-bucket masked softmax
+    attn_impl: str = "xla",  # "pallas" / "flash": K4; "xla": full-bucket masked softmax
     ks_all=None,  # [L, B, KV, S] f32 scales of an int8 cache
     vs_all=None,
 ):
@@ -349,6 +357,7 @@ def decode_step_batch(
     v_blocks), unquantized, for the caller to write at column ``gap_start +
     gap_filled``. int8 weights run weight-only: decode is never W8A8."""
     inv_freq, attention_scaling = _inv_freq(cfg, str(hidden.device))
+    impl = "pallas" if attn_impl in ("pallas", "flash") else attn_impl
     b = hidden.shape[0]
     k_blocks, v_blocks = [], []
     for i in range(cfg.num_hidden_layers):
@@ -361,7 +370,7 @@ def decode_step_batch(
             q_rot.transpose(0, 1), k_all[i], v_all[i], final_len, gap_start,
             gap_filled, k_b, v_b,
             None if ks_all is None else ks_all[i], None if vs_all is None else vs_all[i],
-            dec_start=dec_start, impl=attn_impl,
+            dec_start=dec_start, impl=impl,
         )  # [B, H, D]
         hidden = _layer_out_mlp(cfg, lp, hidden, attn.reshape(b, -1))
         k_blocks.append(k_b)

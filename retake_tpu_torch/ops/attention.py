@@ -3,7 +3,9 @@
 
 Key/value tensors have the full static budget shape and validity is a mask.
 ``chunk_prefill_attention`` is the plain version of K1
-(``ops/cuda/flash_prefill.py``); sequential decode has no kernel and runs
+(``ops/cuda/flash_prefill.py``); ``flash_chunk_attention`` is the blocked
+online-softmax arm that ``attn_implementation: flash`` selects (plain torch
+here, as it is plain XLA in the JAX package: no kernel); sequential decode has no kernel and runs
 ``decode_attention_appendfree`` here on every device. Batched decode over
 the gap-layout cache (``decode_attention_batch_gapped``) has two arms:
 ``"pallas"`` calls K4 (``ops/cuda/decode_gapped.py``) and merges the current
@@ -105,6 +107,82 @@ def chunk_prefill_attention(
     v = torch.cat([value_cache, value_new], dim=1)
     mask = chunk_prefill_mask(budget, s, cache_len, valid_len, query.device)
     return gqa_attention(query, k, v, mask)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[N, M, K] @ [N, K, P] -> fp32 [N, M, P] with the inputs in their own
+    dtype: on CUDA a bf16 product runs on the tensor cores with fp32
+    accumulation and an fp32 result (the JAX arm's
+    ``preferred_element_type=float32``); elsewhere the inputs are widened,
+    which is exact (a bf16 x bf16 product fits fp32)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(_f32(a), _f32(b))
+
+
+def flash_chunk_attention(
+    query: torch.Tensor,  # [H, S, D] RoPE'd chunk queries
+    key_cache: torch.Tensor,  # [KV, budget, D] (int8 with k_scale)
+    value_cache: torch.Tensor,
+    cache_len,  # int or 0-d int tensor
+    key_new: torch.Tensor,  # [KV, S, D]
+    value_new: torch.Tensor,
+    valid_len,  # int or 0-d int tensor
+    block_size: int = 1024,
+    k_scale=None,  # [KV, budget] f32 (int8 cache)
+    v_scale=None,
+) -> torch.Tensor:
+    """Online-softmax chunk attention over key blocks of ``block_size``:
+    the masking of ``chunk_prefill_attention`` without the full probability
+    matrix (the ``attn_implementation: flash`` arm; plain torch, as the JAX
+    arm is plain XLA). The products take their inputs in the activation
+    dtype and give fp32 (``_bmm_f32``); the state (m, l, acc) is fp32.
+    Blocks are sliced from the cache and the chunk as they are, never
+    concatenated or padded; a tail block starts ``block_size`` before the
+    end and masks the columns an earlier block covered. An int8 cache is
+    dequantized block by block."""
+    num_heads, s, head_dim = query.shape
+    num_kv = key_cache.shape[0]
+    group = num_heads // num_kv
+    q = query.reshape(num_kv, group * s, head_dim)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(head_dim), dtype=torch.float32))
+    qi = torch.arange(s, device=query.device)[:, None]
+
+    def phase(k_src, v_src, mask_fn, state, ks_src=None, vs_src=None):
+        m, l, acc = state
+        total = k_src.shape[1]
+        block = min(block_size, total)
+        for start in range(0, total, block):
+            cstart = min(start, total - block)
+            kb, vb = k_src[:, cstart : cstart + block], v_src[:, cstart : cstart + block]
+            if ks_src is not None:
+                kb = dequantize_cache(kb, ks_src[:, cstart : cstart + block], query.dtype)
+                vb = dequantize_cache(vb, vs_src[:, cstart : cstart + block], query.dtype)
+            col = cstart + torch.arange(block, device=query.device)[None, :]
+            mask = mask_fn(col) & (col >= start)  # [S or 1, block]
+            logits = _bmm_f32(q, kb.transpose(-1, -2)).view(num_kv, group, s, block) * scale
+            logits = torch.where(mask[None, None], logits, NEG_INF)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(logits - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            pv = _bmm_f32(p.to(vb.dtype).view(num_kv, group * s, block), vb)
+            acc = acc * alpha[..., None] + pv.view(num_kv, group, s, head_dim)
+            m = m_new
+        return m, l, acc
+
+    state = (
+        torch.full((num_kv, group, s), NEG_INF, dtype=torch.float32, device=query.device),
+        torch.zeros((num_kv, group, s), dtype=torch.float32, device=query.device),
+        torch.zeros((num_kv, group, s, head_dim), dtype=torch.float32, device=query.device),
+    )
+    # the cache < cache_len, then the chunk's own keys, causal and valid
+    state = phase(key_cache, value_cache, lambda col: col < cache_len, state, k_scale, v_scale)
+    _, l, acc = phase(
+        key_new, value_new, lambda col: (col <= qi) & ((col < valid_len) | (col == qi)), state
+    )
+    out = acc / torch.clamp(l, min=1e-37)[..., None]
+    return out.reshape(num_heads, s, head_dim).to(query.dtype)
 
 
 def decode_attention_appendfree(

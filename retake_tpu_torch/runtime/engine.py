@@ -50,8 +50,14 @@ keeps the KV cache int8 with per-key scales, in the single-request cache,
 the trimmed ``PrefillState`` cache, a ``VideoPrefix`` and the gap-layout
 batch.
 
-Not ported yet (raise NotImplementedError): ``attn_implementation: flash``,
-tensor parallelism, MA-LLM.
+``attn_implementation``: ``"pallas"`` runs the kernels (K1 and K2 in the
+prefill, K3 in the ViT); ``"flash"`` is the blocked online-softmax chunk
+attention in plain torch with the plain PivotKV scores, as the JAX package
+has it, while the ViT still runs K3 (the JAX ViT always takes its kernel);
+``"xla"`` is the plain path everywhere. Visual compression: DPSelect
+(``Keyframe``), MA-LLM and MA-LLM-hard (``ops/dpselect.malm_compress``).
+
+Not ported yet: tensor parallelism.
 """
 from __future__ import annotations
 
@@ -194,10 +200,6 @@ def _trim_cache(cache: cache_lib.KVCache, need: int) -> cache_lib.KVCache:
     )
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to retake_tpu_torch yet")
-
-
 def batched_decode_impl(cfg: Qwen2VLConfig, device) -> str:
     """The batched-decode attention arm for a model on ``device``: K4
     (``"pallas"``) on CUDA when the GQA group fits the kernel, the plain
@@ -226,14 +228,12 @@ class Qwen2VLEngine:
         if retake.scaling_factor:
             cfg = cfg.with_yarn(retake.scaling_factor)
         impl = retake.attn_implementation
-        if impl == "flash":
-            raise _not_ported("attn_implementation 'flash'")
-        if retake.visual_compression and retake.visual.compression_method != "Keyframe":
-            raise _not_ported(f"visual compression {retake.visual.compression_method}")
         self.cfg = cfg
         self.model = model
         self.retake = retake
-        self.attn_impl = impl if impl in ("pallas", "xla") else "pallas"
+        self.attn_impl = impl if impl in ("flash", "pallas", "xla") else "pallas"
+        # the ViT has one attention kernel (K3); only "xla" takes its plain twin
+        self.vit_impl = "xla" if self.attn_impl == "xla" else "pallas"
         # W8A8: prefill linears int8 x int8, only where the weights are int8
         self.act_quant = retake.quantization == "w8a8"
         self.noise_fn = None
@@ -258,7 +258,7 @@ class Qwen2VLEngine:
         patches = torch.as_tensor(pixel_values_videos).to(self.device, visual.dtype)
         aq = self.act_quant and visual.int8
         if t <= fcs:
-            return visual(patches, t, h, w, self.attn_impl, aq)
+            return visual(patches, t, h, w, self.vit_impl, aq)
         hw = h * w
         merged_per_t = hw // self.cfg.vision.spatial_merge_size**2
         out_buf = None
@@ -267,7 +267,7 @@ class Qwen2VLEngine:
             chunk = patches[i * hw : (i + tc) * hw]
             if tc < fcs:  # pad the tail to the common shape; frames are independent
                 chunk = torch.nn.functional.pad(chunk, (0, 0, 0, (fcs - tc) * hw))
-            out = visual(chunk, fcs, h, w, self.attn_impl, aq)
+            out = visual(chunk, fcs, h, w, self.vit_impl, aq)
             if out_buf is None:
                 out_buf = torch.empty(
                     (t * merged_per_t, out.shape[-1]), dtype=out.dtype, device=out.device
@@ -289,7 +289,7 @@ class Qwen2VLEngine:
         off = 0
         for t, h, w in grids.tolist():
             n = t * h * w
-            outs.append(visual(pixels[off : off + n], t, h, w, self.attn_impl, aq))
+            outs.append(visual(pixels[off : off + n], t, h, w, self.vit_impl, aq))
             off += n
         if off != pixels.shape[0]:
             raise ValueError(f"image grids cover {off} patches, pixel_values has {pixels.shape[0]}")
@@ -309,8 +309,9 @@ class Qwen2VLEngine:
     def encode_video(
         self, pixel_values_videos, video_grid_thw, on_dispatch=None, _timer=None
     ) -> VideoFeatures:
-        """Vision tower + DPSelect keyframe selection: the question-independent
-        artifact ``generate(video_features=...)`` takes."""
+        """Vision tower + visual compression (DPSelect keyframes, or MA-LLM /
+        MA-LLM-hard frame merging): the question-independent artifact
+        ``generate(video_features=...)`` takes."""
         timer = _timer or StageTimer()
         cfg, rt = self.cfg, self.retake
         t, h, w = (int(x) for x in np.asarray(video_grid_thw).reshape(-1)[:3])
@@ -324,16 +325,26 @@ class Qwen2VLEngine:
                 vc = rt.visual
                 tgt = max(1, round(vc.compression_ratio * t))
                 bank = video_embeds.reshape(t, hw_m, -1)
-                keep, keymask = dpselect.dpselect(bank, tgt, 3, vc.patch_sync)
-                if tgt != t:  # ratio 1.0 keeps every frame: mask only
-                    video_embeds = dpselect.gather_keyframes(bank, keep).reshape(tgt * hw_m, -1)
-                if vc.patch_sync:
-                    keymask = keymask[:, None].expand(tgt, hw_m)
-                keymask_np = (
-                    keymask.reshape(-1).cpu().numpy()
-                    if vc.return_keyframe_mask
-                    else np.zeros(tgt * hw_m, bool)
-                )
+                if vc.compression_method == "Keyframe":
+                    keep, keymask = dpselect.dpselect(bank, tgt, 3, vc.patch_sync)
+                    if tgt != t:  # ratio 1.0 keeps every frame: mask only
+                        video_embeds = dpselect.gather_keyframes(bank, keep).reshape(
+                            tgt * hw_m, -1)
+                    if vc.patch_sync:
+                        keymask = keymask[:, None].expand(tgt, hw_m)
+                    keymask_np = (
+                        keymask.reshape(-1).cpu().numpy()
+                        if vc.return_keyframe_mask
+                        else np.zeros(tgt * hw_m, bool)
+                    )
+                elif vc.compression_method in ("MA-LLM", "MA-LLM-hard"):
+                    video_embeds = dpselect.malm_compress(
+                        bank, tgt, sync=vc.patch_sync,
+                        hard=vc.compression_method == "MA-LLM-hard",
+                    ).reshape(tgt * hw_m, -1)
+                    keymask_np = np.zeros(tgt * hw_m, bool)  # merged frames: no keypatches
+                else:
+                    raise NotImplementedError(vc.compression_method)
         return VideoFeatures(
             embeds=video_embeds, keymask=keymask_np, t=t, tgt=tgt, hw=hw_m, grid=(t, h, w)
         )

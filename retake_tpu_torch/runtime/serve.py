@@ -36,22 +36,38 @@ has no counterpart here.
 
 ``decode_attn_impl="auto"`` takes K4 (``"pallas"``) when the engine runs on
 CUDA and the model's GQA group fits the kernel, the plain arm (``"xla"``)
-otherwise.
+otherwise; ``"flash"`` takes K4 as ``"pallas"`` does.
 
 Sampling (``do_sample``) is reproducible: each slot draws at its
 request-own step (the global step minus ``step_off``, which admission sets
 and compaction rebases with F), so a sampled request gets the noise of its
 sequential ``generate`` whatever its arrival, slot or compactions.
 
-Not ported yet (raise NotImplementedError): the vision-feature and prefix
-caches (``vision_cache_slots`` / ``prefix_cache_slots``) and the online
-mode (``start_online``).
+Caches across questions about one video: a request may carry a
+``video_key``. With ``vision_cache_slots`` the server keeps an LRU of
+``engine.encode_video`` features under it (a hit skips the ViT and visual
+compression), with ``prefix_cache_slots`` an LRU of ``engine.encode_prefix``
+captures (a hit also skips the video prefill; ``PrefixMismatch`` falls back
+to the inline prefill, ``PrefixBudgetOverflow`` recaptures). The caches are
+dicts that only the serving loop's thread mutates, and only by single dict
+operations (pop, reinsert, insert, evict), so another thread may peek them
+with one ``get`` (``runtime/http_server.py`` does).
+
+Online mode (``start_online`` -> ``OnlineHandle``): one worker thread runs
+the serving loop and does all device work; callers ``submit`` from any
+thread and get a ``concurrent.futures.Future``. Grad mode and the current
+CUDA stream are per thread in PyTorch: the worker runs under
+``torch.no_grad`` on its own current stream, the device's default one, and
+every device operation of the server is issued there in program order.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 import time
+from concurrent.futures import Future
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -59,9 +75,11 @@ import torch
 
 from retake_tpu_torch.runtime.engine import (
     PrefillState,
+    PrefixBudgetOverflow,
+    PrefixMismatch,
+    PrefixUnsupported,
     _decode_loop_batch,
     _insert_batch_slot,
-    _not_ported,
     batched_decode_impl,
 )
 from retake_tpu_torch.runtime.sampling import Sampler
@@ -116,6 +134,8 @@ class ServeResult:
     first_token_s: float  # prefill done = first token ready
     finish_s: float  # last token harvested
     cancelled: bool = False  # client disconnect (on_tokens returned False) or deadline
+    error: str = ""  # online mode: the admission failed (the request never ran;
+    #   cancelled is True too)
 
     @property
     def ttft_s(self) -> float:  # queue wait + prefill
@@ -134,9 +154,13 @@ class ContinuousServer:
     column (default: the first admitted request's attention bucket) — a
     request whose own bucket exceeds it raises ``ValueError``.
     ``max_new_tokens`` is the server's default token budget; a request dict
-    may carry its own. Blind decode segments run between an admission's
-    prefill steps (the engine's ``on_dispatch`` hook),
-    ``interleave_segments_per_hook`` of them per hook.
+    may carry its own. With ``interleave_prefill``, blind decode segments
+    run between an admission's prefill steps (the engine's ``on_dispatch``
+    hook), ``interleave_segments_per_hook`` of them per hook.
+    ``vision_cache_slots`` / ``prefix_cache_slots`` size the LRU caches of
+    keyed requests (0 = off); a prefix capture reserves
+    ``prefix_reserve_tokens`` for later, longer questions. ``stats`` counts
+    requests, tokens, segments, compactions and cache events.
     """
 
     def __init__(
@@ -147,34 +171,43 @@ class ContinuousServer:
         max_new_tokens: Optional[int] = None,
         prefill_bucket: Optional[int] = None,
         gap_capacity: Optional[int] = None,
+        interleave_prefill: bool = True,
         interleave_segments_per_hook: int = 1,
         decode_attn_impl: str = "auto",
         vision_cache_slots: int = 0,
         prefix_cache_slots: int = 0,
+        prefix_reserve_tokens: int = 512,
     ):
-        if vision_cache_slots > 0:
-            raise _not_ported("the serving vision-feature cache (vision_cache_slots)")
-        if prefix_cache_slots > 0:
-            raise _not_ported("the serving prefix cache (prefix_cache_slots)")
         rt = engine.retake
         self.sampler = Sampler.from_config(rt, getattr(engine, "noise_fn", None))
         self.engine = engine
         self.cfg = engine.cfg
+        self.vision_cache_slots = int(vision_cache_slots)
+        self._vision_cache: Dict[str, object] = {}  # video_key -> VideoFeatures
+        self.prefix_cache_slots = int(prefix_cache_slots)
+        self.prefix_reserve = int(prefix_reserve_tokens)
+        self._prefix_cache: Dict[str, object] = {}  # video_key -> VideoPrefix
+        self._prefix_disabled = False  # set for good by PrefixUnsupported
+        # written only by the serving loop's thread
         self.stats: Dict[str, int] = {
             "requests_admitted": 0, "requests_finished": 0,
             "requests_cancelled": 0, "requests_rejected_deadline": 0,
-            "tokens_emitted": 0, "segments_dispatched": 0, "compactions": 0,
+            "requests_failed": 0, "tokens_emitted": 0, "segments_dispatched": 0,
+            "compactions": 0, "vision_cache_hits": 0, "vision_cache_misses": 0,
+            "prefix_cache_hits": 0, "prefix_cache_misses": 0,
+            "prefix_mismatch_fallbacks": 0, "prefix_capture_failures": 0,
+            "prefix_budget_recaptures": 0,
         }
         self.b = int(batch_slots)
         self.seg = int(segment_steps)
         self.max_new = int(max_new_tokens or rt.max_new_tokens)
         self.p_bucket = prefill_bucket  # resolved at first admission
         self.gap_cap = int(gap_capacity or max(4 * self.seg, 128))
+        self.interleave = bool(interleave_prefill)
         self.per_hook = max(1, int(interleave_segments_per_hook))
-        if decode_attn_impl not in ("auto", "xla", "pallas"):
-            raise ValueError(
-                f"decode_attn_impl must be 'auto', 'xla' or 'pallas', got {decode_attn_impl!r}"
-            )
+        if decode_attn_impl not in ("auto", "xla", "pallas", "flash"):
+            raise ValueError("decode_attn_impl must be 'auto', 'xla', 'pallas' or 'flash', "
+                             f"got {decode_attn_impl!r}")
         if decode_attn_impl == "auto":
             decode_attn_impl = batched_decode_impl(self.cfg, engine.device)
         self.decode_attn_impl = decode_attn_impl
@@ -362,13 +395,121 @@ class ContinuousServer:
         self._serve_loop(source, lambda res: results.__setitem__(res.request_id, res))
         return results
 
-    def start_online(self, max_queue: Optional[int] = None):
-        raise _not_ported("the online serving mode (start_online)")
+    def _hook(self):
+        return self._on_prefill_dispatch if self.interleave else None
 
-    def _serve_loop(self, source, emit_result):
+    @staticmethod
+    def _lru_put(cache: dict, key, value, slots: int) -> None:
+        cache[key] = value
+        while len(cache) > slots:
+            cache.pop(next(iter(cache)))
+
+    def _maybe_reuse_vision(self, req: dict) -> dict:
+        """Swap a keyed request's pixels for its cached ``VideoFeatures``
+        (encoding them on a miss, with the blind-segment hook); a request
+        that carries its own ``video_features`` only bumps the LRU. Pixels
+        are dropped only once features stand in for them."""
+        req = dict(req)
+        key = req.pop("video_key", None)
+        if key is None or self.vision_cache_slots <= 0:
+            return req
+        if req.get("video_features") is not None:  # pinned by the caller
+            self.stats["vision_cache_hits"] += 1
+            self._vision_cache.pop(key, None)
+            self._lru_put(self._vision_cache, key, req["video_features"], self.vision_cache_slots)
+            return req
+        feats = self._vision_cache.pop(key, None)  # pop + reinsert = LRU bump
+        self.stats["vision_cache_hits" if feats is not None else "vision_cache_misses"] += 1
+        if feats is None and req.get("pixel_values_videos") is not None:
+            feats = self.engine.encode_video(req["pixel_values_videos"],
+                                             req.get("video_grid_thw"), on_dispatch=self._hook())
+        if feats is None:
+            return req
+        self._lru_put(self._vision_cache, key, feats, self.vision_cache_slots)
+        req.pop("pixel_values_videos", None)
+        req.pop("video_grid_thw", None)
+        req["video_features"] = feats
+        return req
+
+    def _maybe_reuse_prefix(self, key, req: dict, req_max: int):
+        """The cached ``VideoPrefix`` for ``key``, a fresh capture on a miss
+        (sized for the largest budget the server allows so far), or None for
+        the inline path: no key, cache off or disabled, a mixed image and
+        video prompt, nothing to capture from, or a failed capture
+        (``PrefixUnsupported`` disables the cache for good; a ``ValueError``
+        fails only this capture)."""
+        if key is None or self.prefix_cache_slots <= 0 or self._prefix_disabled:
+            return None
+        if req.get("pixel_values") is not None:
+            return None  # image embeddings ride outside the captured prefix
+        vp = self._prefix_cache.pop(key, None)
+        if vp is not None:
+            self._prefix_cache[key] = vp  # LRU bump
+            self.stats["prefix_cache_hits"] += 1
+            return vp
+        self.stats["prefix_cache_misses"] += 1
+        if req.get("pixel_values_videos") is None and req.get("video_features") is None:
+            return None
+        try:
+            vp = self.engine.encode_prefix(
+                req["input_ids"], req.get("pixel_values_videos"), req.get("video_grid_thw"),
+                video_features=req.get("video_features"),
+                max_new_tokens=max(self.max_new, req_max),
+                reserve_tokens=self.prefix_reserve, on_dispatch=self._hook(),
+            )
+        except PrefixUnsupported:
+            self.stats["prefix_capture_failures"] += 1
+            self._prefix_disabled = True
+            return None
+        except ValueError:
+            self.stats["prefix_capture_failures"] += 1
+            return None
+        self._lru_put(self._prefix_cache, key, vp, self.prefix_cache_slots)
+        return vp
+
+    def _prefill(self, req: dict, req_max: int, video_key) -> PrefillState:
+        """One admission's prefill: a prefix hit runs only the question's
+        suffix; ``PrefixMismatch`` falls back inline (on the prefix's own
+        features when the request has no video), ``PrefixBudgetOverflow``
+        evicts and recaptures first."""
+        hook = self._hook()
+        req = self._maybe_reuse_vision(req)
+        vp = self._maybe_reuse_prefix(video_key, req, req_max)
+        for attempt in range(2):  # the cached prefix, then at most one recapture
+            if vp is None:
+                break
+            try:
+                return self.engine.generate(req["input_ids"], prefix=vp, max_new_tokens=req_max,
+                                            _prefill_only=True, on_dispatch=hook)
+            except PrefixMismatch as pm:
+                self.stats["prefix_mismatch_fallbacks"] += 1
+                if req.get("pixel_values_videos") is None and req.get("video_features") is None:
+                    req["video_features"] = vp.features
+                if attempt or not isinstance(pm, PrefixBudgetOverflow):
+                    break
+            # the capture's budget is outgrown: recapture at this budget
+            self._prefix_cache.pop(video_key, None)
+            vp = self._maybe_reuse_prefix(video_key, req, req_max)
+            if vp is not None:
+                self.stats["prefix_budget_recaptures"] += 1
+        return self.engine.generate(**{k: v for k, v in req.items() if k != "max_new_tokens"},
+                                    max_new_tokens=req_max, _prefill_only=True, on_dispatch=hook)
+
+    def start_online(self, max_queue: Optional[int] = None) -> "OnlineHandle":
+        """Online mode: a worker thread runs the serving loop; ``submit()``
+        from any thread returns a ``Future[ServeResult]`` (``on_tokens`` as
+        in ``run``, cancel on False included). ``max_queue`` bounds the
+        not-yet-admitted backlog: ``submit`` raises ``queue.Full`` past it.
+        A request's ``deadline_s`` counts from its submission. One failed
+        admission fails only its request (``ServeResult.error``)."""
+        return OnlineHandle(self, max_queue=max_queue)
+
+    def _serve_loop(self, source, emit_result, isolate_errors: bool = False):
         """``source(now, idle)`` returns ("req", (req_dict, request_id,
         on_tokens, arrival_s)), ("wait", None) when nothing has arrived yet,
-        or ("end", None); ``emit_result`` gets each ServeResult once."""
+        or ("end", None); ``emit_result`` gets each ServeResult once. With
+        ``isolate_errors`` (online mode) an exception while admitting one
+        request fails only that request; ``run`` keeps fail-fast."""
         slot_req: Dict[int, int] = {}  # slot -> request id
         slot_tokens: Dict[int, list] = {}
         slot_meta: Dict[int, dict] = {}
@@ -395,7 +536,6 @@ class ContinuousServer:
                     return
                 req, rid, cb, arrival = payload
                 req = dict(req)
-                req.pop("video_key", None)  # keys only address the caches not ported
                 deadline = req.pop("deadline_s", None)
                 deadline = None if deadline is None else arrival + float(deadline)
                 if deadline is not None and now() > deadline:
@@ -407,17 +547,25 @@ class ContinuousServer:
                     ))
                     continue
                 t_pf = now()
-                req_max = int(req.pop("max_new_tokens", None) or self.max_new)
-                st = self.engine.generate(
-                    **req, max_new_tokens=req_max, _prefill_only=True,
-                    on_dispatch=self._on_prefill_dispatch,
-                )
-                if self.p_bucket is not None and st.attn_need > self.p_bucket:
-                    raise ValueError(
-                        f"request bucket {st.attn_need} exceeds server prefill bucket "
-                        f"{self.p_bucket} (max_new_tokens or video length too large "
-                        "for this server)"
-                    )
+                try:
+                    req_max = int(req.get("max_new_tokens") or self.max_new)
+                    st = self._prefill(req, req_max, req.get("video_key"))
+                    if self.p_bucket is not None and st.attn_need > self.p_bucket:
+                        raise ValueError(
+                            f"request bucket {st.attn_need} exceeds server prefill bucket "
+                            f"{self.p_bucket} (max_new_tokens or video length too large "
+                            "for this server)"
+                        )
+                except Exception as e:  # the online worker's boundary: fail one request
+                    if not isolate_errors:
+                        raise
+                    self.stats["requests_failed"] += 1
+                    emit_result(ServeResult(
+                        request_id=rid, tokens=np.zeros(0, np.int64), arrival_s=arrival,
+                        prefill_start_s=t_pf, first_token_s=now(), finish_s=now(),
+                        cancelled=True, error=f"{type(e).__name__}: {e}",
+                    ))
+                    continue
                 # blind segments staged during this prefill predate the
                 # admission: harvest them before the new tenant takes a slot
                 drain_staged()
@@ -495,3 +643,84 @@ class ContinuousServer:
         finally:
             self._slot_req = None
             self._drain = None
+
+
+class OnlineHandle:
+    """The dynamic-submission front of a ``ContinuousServer``
+    (``start_online``): ``submit(request, on_tokens=None)`` from any thread
+    returns a ``Future[ServeResult]``; one worker thread runs the serving
+    loop and every device operation. ``close()`` stops admission, serves the
+    requests in flight and joins the worker. A context manager."""
+
+    def __init__(self, server: ContinuousServer, max_queue: Optional[int] = None):
+        self.server = server
+        self.max_queue = max_queue
+        self._q: queue.Queue = queue.Queue()
+        self._futures: Dict[int, Future] = {}
+        self._next_id = 0
+        self._lock = threading.Lock()
+        self._closed = False
+        self._thread = threading.Thread(target=self._work, daemon=True, name="retake-serve")
+        self._thread.start()
+
+    def submit(self, request: dict, on_tokens=None) -> Future:
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("OnlineHandle is closed")
+            if self.max_queue is not None and self._q.qsize() >= self.max_queue:
+                raise queue.Full(f"serving backlog at max_queue={self.max_queue}")
+            rid = self._next_id
+            self._next_id += 1
+            fut: Future = Future()
+            self._futures[rid] = fut
+            # the put stays under the lock: every submission lands before
+            # close()'s sentinel, and the max_queue check holds with it
+            self._q.put((request, rid, on_tokens, time.perf_counter()))
+        return fut
+
+    def close(self, timeout: Optional[float] = None) -> None:
+        """Stop admission, drain the requests in flight, join the worker
+        (``timeout`` bounds the join; the worker is alive after it only if
+        the join timed out)."""
+        with self._lock:
+            if not self._closed:
+                self._closed = True
+                self._q.put(None)  # under the lock: no submission after the sentinel
+        self._thread.join(timeout)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def _work(self):
+        def source(now, idle):
+            try:  # idle: block until a request or the sentinel; busy: poll
+                item = self._q.get(block=idle)
+            except queue.Empty:
+                return "wait", None
+            if item is None:
+                return "end", None
+            req, rid, cb, t_submit = item
+            return "req", (req, rid, cb, t_submit - time.perf_counter() + now())
+
+        def emit(res: ServeResult):
+            with self._lock:
+                fut = self._futures.pop(res.request_id)
+            fut.set_result(res)
+
+        exc: BaseException = RuntimeError("server closed before the request ran")
+        try:
+            with torch.no_grad():
+                self.server._serve_loop(source, emit, isolate_errors=True)
+        except BaseException as e:  # the worker died: fail every pending future
+            exc = e
+            raise
+        finally:
+            with self._lock:
+                self._closed = True
+                futs, self._futures = self._futures, {}
+            for f in futs.values():
+                if not f.done():
+                    f.set_exception(exc)

@@ -37,7 +37,9 @@ class RetakeConfig:
     method: str = "retake"
     scaling_factor: Optional[float] = None  # YaRN factor; None = disabled
     # "pallas": the hand-written kernels (K1/K2/K3) on CUDA tensors;
-    # "xla": the plain torch path (masked full attention, eviction_scores)
+    # "flash": blocked online-softmax prefill attention in plain torch (K3
+    # in the ViT); "xla": the plain torch path (masked full attention,
+    # eviction_scores)
     attn_implementation: str = "pallas"
     frame_chunk_size: Optional[int] = None  # ViT chunking (grid_t units)
     chunked_prefill_frames: Optional[int] = None  # LLM chunk (raw frames)

@@ -119,7 +119,7 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import retake_tpu_torch.ops.cuda.flash_prefill, retake_tpu_torch.ops.cuda.pivot_scores\n"
         "import retake_tpu_torch.ops.cuda.vit_attention, retake_tpu_torch.utils.profiling\n"
         "import retake_tpu_torch.ops.cuda.decode_gapped, retake_tpu_torch.runtime.serve\n"
-        "import retake_tpu_torch.tools.k4_timing\n"
+        "import retake_tpu_torch.tools.k4_timing, retake_tpu_torch.tools.flash_timing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'retake_tpu' or m.startswith('retake_tpu.')]\n"
         "assert not bad, bad\n"

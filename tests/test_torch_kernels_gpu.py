@@ -81,9 +81,12 @@ def test_flash_prefill_kernel_matches_plain(cuda, s, cache_len, valid_len, group
 # valid_len): a prompt-guided block (a 2304-row chunk with the 49-row
 # question after it, full and as a short last chunk of 1999 + 49 rows) and a
 # spec-decode verify chunk of draft + 1 = 9 rows over an empty, a ~32k and a
-# full cache (S far below the 128-row query block)
+# full cache (S far below the 128-row query block), and the online server's
+# prefix-hit text step after a budget recapture (a 6128-row question over
+# the 18449 entries of a 256-frame prefix: 48 query blocks)
 K1_PATH_CASES = [(2353, 40960, 20000, 2353), (2353, 4096, 3001, 2048), (2353, 4096, 0, 2353),
-                 (9, 32768, 32000, 9), (9, 32768, 0, 9), (9, 4096, 4096, 9), (9, 4096, 1001, 5)]
+                 (9, 32768, 32000, 9), (9, 32768, 0, 9), (9, 4096, 4096, 9), (9, 4096, 1001, 5),
+                 (6144, 32768, 18449, 6128)]
 
 
 @pytest.mark.parametrize("s,budget,cache_len,valid_len", K1_PATH_CASES)
@@ -275,6 +278,48 @@ def test_decode_attention_batch_gapped_kernel_arm_matches_plain_arm(cuda):
     err = (got.float() - want.float()).abs().max().item()
     assert err <= _bf16_tol(want), (err, _bf16_tol(want))
     assert torch.equal(got[3], vn[3].repeat_interleave(g, dim=0))
+
+
+def test_decode_step_batch_flash_takes_k4_and_matches_the_plain_arm(cuda):
+    # decode_attn_impl "flash" (the server's and text.decode_step_batch's
+    # arm name) runs K4, once per layer, as "pallas" does: one batched step
+    # of a 2-layer bf16 model at 2B head geometry over a gap-layout cache,
+    # next-token logits against the plain arm within 5% of the largest
+    # (chip_smoke.py's E2E_REL_LOGIT_TOL), and bitwise equal to "pallas"
+    from retake_tpu_torch.models.qwen2_vl import params, text
+    from retake_tpu_torch.models.qwen2_vl.config import Qwen2VisionConfig, Qwen2VLConfig
+    from retake_tpu_torch.models.qwen2_vl.model import Qwen2VLModel
+
+    cfg = Qwen2VLConfig(vocab_size=4096, hidden_size=1536, intermediate_size=2048,
+                        num_hidden_layers=2, num_attention_heads=12, num_key_value_heads=2,
+                        mrope_section=(16, 24, 24),
+                        vision=Qwen2VisionConfig(depth=1, embed_dim=160, hidden_size=1536,
+                                                 num_heads=2))
+    model = Qwen2VLModel(cfg, params.init_params(cfg, seed=0, device=cuda))
+    rng = np.random.default_rng(11)
+    b, kv, s, d = 3, 2, 10240, 128
+    k_all = _bf16(rng, (2, b, kv, s, d), cuda)
+    v_all = _bf16(rng, (2, b, kv, s, d), cuda)
+    hidden = _bf16(rng, (b, cfg.hidden_size), cuda, 0.05)
+    base_t = _i32(rng.integers(100, 4000, size=(2, b)), cuda)
+    pos_rest = _i32([4100, 3000, 900], cuda)
+    final_len = _i32([8000, 2999, 512], cuda)
+    dec_start = _i32([8192, 8200, 8192], cuda)
+    out = {}
+    for impl in ("flash", "pallas", "xla"):
+        n0 = decode_gapped.decode_gapped_flash_state.launches
+        h, _, _ = text.decode_step_batch(model, cfg, k_all, v_all, hidden, base_t, pos_rest,
+                                         final_len, 8192, 16, dec_start=dec_start,
+                                         attn_impl=impl)
+        out[impl] = text.final_logits_batch(model, cfg, h)
+        n = decode_gapped.decode_gapped_flash_state.launches - n0
+        assert n == (0 if impl == "xla" else cfg.num_hidden_layers), (impl, n)
+    torch.cuda.synchronize()
+    assert torch.equal(out["flash"], out["pallas"])
+    a, want = out["flash"], out["xla"]
+    assert bool(torch.isfinite(a).all())
+    rel = (a - want).abs().max().item() / want.abs().max().item()
+    assert rel <= 0.05, rel
 
 
 def _int8(rng, shape, dev):

@@ -554,7 +554,8 @@ def test_serve_gap_cols_align_the_bucket(tiny):
 
 def test_serve_decode_attn_impl_auto(tiny):
     """"auto": the plain arm on the CPU; K4 for an engine on CUDA whose GQA
-    group fits the kernel; the plain arm for a wider group."""
+    group fits the kernel; the plain arm for a wider group. "flash" is kept
+    (it decodes through K4, as "pallas"); another name raises."""
     _, eng = _engines(tiny, SERVE_RT)
     assert ContinuousServer(eng).decode_attn_impl == "xla"
     assert ContinuousServer(eng, decode_attn_impl="pallas").decode_attn_impl == "pallas"
@@ -566,17 +567,13 @@ def test_serve_decode_attn_impl_auto(tiny):
 
     assert ContinuousServer(fake(12)).decode_attn_impl == "pallas"
     assert ContinuousServer(fake(36)).decode_attn_impl == "xla"
+    assert ContinuousServer(eng, decode_attn_impl="flash").decode_attn_impl == "flash"
     with pytest.raises(ValueError):
-        ContinuousServer(eng, decode_attn_impl="flash")
+        ContinuousServer(eng, decode_attn_impl="sdpa")
 
 
-def test_serve_rejects_paths_not_ported(tiny, served):
+def test_serve_rejects_unsorted_arrivals(tiny, served):
     reqs, _, _ = served
     _, eng = _engines(tiny, SERVE_RT)
-    for kw in ({"vision_cache_slots": 1}, {"prefix_cache_slots": 1}):
-        with pytest.raises(NotImplementedError):
-            ContinuousServer(eng, **kw)
-    with pytest.raises(NotImplementedError):
-        ContinuousServer(eng).start_online()
     with pytest.raises(ValueError):
         ContinuousServer(eng).run([dict(reqs[0]), dict(reqs[1])], arrival_times=[1.0, 0.0])
