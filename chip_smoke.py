@@ -27,7 +27,9 @@ Phases (each prints; any failure raises and exits non-zero):
      (CUDA-graph replay); K1, K2
      and K3 at the shapes of
      phases 12-16, K1 at phase
-     17's recapture text step
+     17's recapture text step,
+     K1 and K2 at phase 22's
+     LLaVA-Video-7B chunk
   4. end to end, with kernel      10. 7B W8A8 + int8-KV request: launch
      launch counts                    counts, bit-exact repeat (cache and
   5. the same request again,          scales), kernel vs plain path
@@ -65,12 +67,25 @@ Phases (each prints; any failure raises and exits non-zero):
  20. MA-LLM and MA-LLM-hard (ratio 0.5, patch_sync off and on) at 128
      frames: feature shapes, bit-exact repeat, K3 launches, a request;
      malm_compress's time at 64 merges
+ 21. weights and configs from disk (2B): ``RetakeConfig.from_yaml`` of every
+     file under configs/; the random tree as two HF safetensors shards with
+     an index through ``load_safetensors(device="cuda")``, bit-identical
+     (seconds, peak memory); a weight-only int8 tree through
+     ``save_params`` / ``load_checked``, the same request from both; the
+     port demo (``retake_tpu_torch.demo``) on random weights, 64 frames
+ 22. LLaVA-Video-7B at full width and depth (Qwen2-7B text, SigLIP so400m)
+     under configs/llava_video/retake_llava-video_videomme.yaml with the
+     kernels, 256 frames (``--llava-frames``): TTFT cold and warm, stages,
+     peak memory, bit-exact repeat, K1 / K2 launches per step and chunk, no
+     K3; SigLIP's time; at 64 frames the kernel path against the plain arm
+     and the published "flash" arm, two ``prefix=`` questions bit-exact, a
+     3-request ``generate_batch`` (K4), W8A8 against bf16
 
 The last two stdout lines are the kernels record and
 ``{"ok": true, "device": {...}}``; before them, the card's name and power
 limit as nvidia-smi prints them.
 
-Usage:  python3 chip_smoke.py [--frames 512] [--seed 0] [--profile]
+Usage:  python3 chip_smoke.py [--frames 512] [--seed 0] [--profile] [--llava-frames 256]
 
 ``--frames`` sets the single request of phases 4-5, 10, 12, 14-16 (2048 =
 the bench geometry). ``--profile`` adds one more warm request (2B and 7B) and
@@ -81,6 +96,7 @@ kernels by device time and the device-busy share of each.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -207,6 +223,27 @@ SPEC_MIN_AGREEMENT = 0.7
 WAIT_S = 300.0
 ONLINE_MIN_AGREEMENT = 0.9
 HTTP_FRAMES = 64
+# phase 22: LLaVA-Video-7B under the published Video-MME config (its 1024
+# frames cut to --llava-frames for time). A video chunk is 32 frames x 196
+# tokens = 6272 rows; the span's newline token is a last chunk of one row.
+# Phase 3 holds K1 to its plain twin at the fill levels a 256-frame request
+# walks through (~4993 entries kept a chunk) and times it at 20000
+LLAVA_YAML = "configs/llava_video/retake_llava-video_videomme.yaml"
+LLAVA_ROWS, LLAVA_BUDGET = 32 * 196, 40960
+LLAVA_K1_CASES = [(0, LLAVA_ROWS), (20000, LLAVA_ROWS), (34951, LLAVA_ROWS), (39944, 1)]
+LLAVA_K1_TIMED = 20000
+# phase 22's kernel path against the plain arms at 64 frames (bf16, 7B
+# random weights): the first logits within 2% of the largest logit (first
+# H100 reading 0.0134 against "xla") and phase 6's share of kept entries in
+# common (first reading 0.9194: 37% of each 6272-row chunk is evicted, and
+# near-equal column sums swap between the kernel and plain roundings)
+LLAVA_REL_LOGIT_TOL = 0.02
+LLAVA_MIN_KEPT = E2E_MIN_KEPT_AGREEMENT
+# reference points of earlier runs on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md): phase 19's "flash" TTFT at 512 frames before the attention
+# window and the "pallas" warm decode of 15 tokens
+FLASH_TTFT_BEFORE_S = 13.30
+DECODE_15_BEFORE_S = 0.904
 
 
 def log(msg: str) -> None:
@@ -1699,6 +1736,9 @@ def phase_flash(cfg, model, dev, args) -> dict:
     a, b = out["flash"], out["pallas"]
     rel = float(np.abs(a.first_logits - b.first_logits).max() / np.abs(b.first_logits).max())
     kept = kept_agreement(a.cache, b.cache, a.cache_fill)
+    log(f"[19] with the attention window: flash TTFT {ttft['flash']} s (cold, warm; "
+        f"{FLASH_TTFT_BEFORE_S} s before it), pallas decode {b.decode_seconds:.3f} s for "
+        f"{len(b.tokens) - 1} tokens ({DECODE_15_BEFORE_S} s for 15 before it)")
     log(f"[19] flash arm, {args.frames} frames: TTFT flash {ttft['flash']} s (cold, warm) vs pallas "
         f"{ttft['pallas']} s (warm); launches flash {n['flash']}, pallas {n['pallas']}; first "
         f"logits rel max|diff| {rel:.4f} (bound {E2E_REL_LOGIT_TOL}), kept entries in common "
@@ -1784,12 +1824,465 @@ def phase_malm(cfg, model, dev, seed: int) -> dict:
     return launches
 
 
+def k1_plain_per_kv_head(q, kc, vc, cl, kn, vn, vl, cache_len: int):
+    """K1's plain twin one KV head (its G query heads) at a time, over the
+    8192-multiple window that covers ``cache_len``: the same function (K1
+    reads no key past cache_len), in memory the card has (the whole
+    [28, 6272, 47232] fp32 logits of the LLaVA shape would be 33 GB)."""
+    from retake_tpu_torch.ops.cuda import flash_prefill
+
+    kv = kc.shape[0]
+    g = q.shape[0] // kv
+    w = min(kc.shape[1], max(8192, -(-cache_len // 8192) * 8192))
+    return torch.cat([
+        flash_prefill.flash_prefill_attention_plain(
+            q[i * g : (i + 1) * g], kc[i : i + 1, :w], vc[i : i + 1, :w], cl, kn[i : i + 1],
+            vn[i : i + 1], vl)
+        for i in range(kv)
+    ])
+
+
+def phase_kernels_llava(dev, records):
+    """K1 and K2 at the LLaVA-Video-7B prefill of phase 22: 28/4 heads, a
+    32-frame chunk of 32 x 196 = 6272 rows over the 40960-key budget at a
+    256-frame request's fill levels, and the one-row last chunk of the
+    newline token (valid_len 1). Error against the plain twin, bitwise
+    repeat, CUDA-event medians, bound and share, and SDPA's time for K1,
+    under each record's ``new_shapes``."""
+    from retake_tpu_torch.ops.cuda import flash_prefill, pivot_scores
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    kv, g, d, s, budget = 4, 7, 128, LLAVA_ROWS, LLAVA_BUDGET
+    h = kv * g
+    k1, k2 = flash_prefill.flash_prefill_attention, pivot_scores.pivot_score_sums
+    q = bf16(gen, (h, s, d), dev)
+    kc, vc = bf16(gen, (kv, budget, d), dev), bf16(gen, (kv, budget, d), dev)
+    kn, vn = bf16(gen, (kv, s, d), dev), bf16(gen, (kv, s, d), dev)
+    worst = 0.0
+    for cache_len, valid_len in LLAVA_K1_CASES:
+        cl, vl = i32(cache_len), i32(valid_len)
+        got, again = k1(q, kc, vc, cl, kn, vn, vl), k1(q, kc, vc, cl, kn, vn, vl)
+        want = k1_plain_per_kv_head(q, kc, vc, cl, kn, vn, vl, cache_len)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), ("K1 LLaVA not bitwise repeatable", cache_len))
+        err, tol = max_err(got, want), bf16_tol(want)
+        worst = max(worst, err)
+        log(f"K1 LLaVA-Video-7B chunk S={s} heads {h}/{kv} cache_len={cache_len} "
+            f"valid_len={valid_len}: max_abs_err {err:.3e} (tol {tol:.3e})")
+        check(err <= tol, ("K1 LLaVA", cache_len, valid_len, err, tol))
+        del got, again, want
+    cl_t = LLAVA_K1_TIMED
+    cl, vl = i32(cl_t), i32(s)
+    t_k = cuda_ms(lambda: k1(q, kc, vc, cl, kn, vn, vl), 20)
+    t_p = cuda_ms(lambda: k1_plain_per_kv_head(q, kc, vc, cl, kn, vn, vl, cl_t), 3, 1)
+    lib, backend = sdpa_call(q, kc, vc, kn, vn, cl_t, s)
+    t_l = cuda_ms(lib, 10)
+    del lib
+    flops, nbytes = k1_work(h, kv, s, d, cl_t, s, False)
+    b, by = bound(flops, nbytes)
+    log(f"K1 LLaVA-Video-7B chunk S={s} cache_len={cl_t}: kernel {t_k:.4f} ms plain {t_p:.3f} ms "
+        f"SDPA ({backend}) {t_l:.4f} ms; bound {b:.4f} ms ({by}), {100 * b / t_k:.1f}% of it")
+    records["K1"]["new_shapes"].append(dict(
+        path="LLaVA-Video-7B video chunk (28/4 heads)", s=s, budget=budget, cache_len=cl_t,
+        valid_len=s, max_abs_err=worst, ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by,
+        bound_share=b / t_k, library_ms=t_l, library_backend=backend))
+    worst = 0.0
+    for valid_len in (s, 1):
+        vl = i32(valid_len)
+        got, again = k2(q, kn, vl), k2(q, kn, vl)
+        want = pivot_scores.pivot_score_sums_plain(q, kn, vl)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), ("K2 LLaVA not bitwise repeatable", valid_len))
+        err = max_err(got, want)
+        worst = max(worst, err)
+        log(f"K2 LLaVA-Video-7B chunk S={s} heads {h}/{kv} valid_len={valid_len}: max_abs_err "
+            f"{err:.3e} (tol {K2_TOL})")
+        check(err <= K2_TOL, ("K2 LLaVA", valid_len, err))
+        del got, again, want
+    vl = i32(s)
+    t_k = cuda_ms(lambda: k2(q, kn, vl), 20)
+    t_p = cuda_ms(lambda: pivot_scores.pivot_score_sums_plain(q, kn, vl), 5)
+    b, by = bound(2 * d * h * s * s, 2 * h * s * d + 2 * kv * s * d + 4 * kv * s)
+    log(f"K2 LLaVA-Video-7B chunk S={s}: kernel {t_k:.4f} ms plain {t_p:.3f} ms; bound {b:.4f} "
+        f"ms ({by}), {100 * b / t_k:.1f}% of it")
+    records["K2"]["new_shapes"].append(dict(
+        path="LLaVA-Video-7B video chunk (28/4 heads)", s=s, valid_len=s, max_abs_err=worst,
+        ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by, bound_share=b / t_k, library_ms=None))
+    del q, kc, vc, kn, vn
+    torch.cuda.empty_cache()
+
+
+def hf_tensors_of(cfg, params) -> dict:
+    """The inverse of ``params.from_hf_tensors``: a Qwen2-VL parameter tree
+    under HF tensor names, torch ``[out, in]`` linears, one tensor a layer
+    (for writing an HF checkpoint from random weights)."""
+    out = {}
+
+    def lin(w):
+        return w.transpose(-1, -2).contiguous()
+
+    lp = params["layers"]
+    for i in range(cfg.num_hidden_layers):
+        pre = f"model.layers.{i}."
+        out[pre + "input_layernorm.weight"] = lp["input_ln"][i]
+        out[pre + "post_attention_layernorm.weight"] = lp["post_ln"][i]
+        for k in ("q", "k", "v", "o"):
+            out[pre + f"self_attn.{k}_proj.weight"] = lin(lp[k]["w"][i])
+            if "b" in lp[k]:
+                out[pre + f"self_attn.{k}_proj.bias"] = lp[k]["b"][i]
+        for k in ("gate", "up", "down"):
+            out[pre + f"mlp.{k}_proj.weight"] = lin(lp[k]["w"][i])
+    out["model.embed_tokens.weight"] = params["embed_tokens"]
+    out["model.norm.weight"] = params["final_ln"]
+    if "lm_head" in params:
+        out["lm_head.weight"] = lin(params["lm_head"])
+    vp, v = params["visual"], cfg.vision
+    pw = vp["patch_embed"]["w"]
+    out["visual.patch_embed.proj.weight"] = pw.T.reshape(
+        pw.shape[1], v.in_channels, v.temporal_patch_size, v.patch_size, v.patch_size).contiguous()
+    bp = vp["blocks"]
+    for i in range(v.depth):
+        pre = f"visual.blocks.{i}."
+        for k, name in (("ln1", "norm1"), ("ln2", "norm2")):
+            out[pre + name + ".weight"] = bp[k]["scale"][i]
+            out[pre + name + ".bias"] = bp[k]["bias"][i]
+        for k, name in (("qkv", "attn.qkv"), ("proj", "attn.proj"), ("fc1", "mlp.fc1"),
+                        ("fc2", "mlp.fc2")):
+            out[pre + name + ".weight"] = lin(bp[k]["w"][i])
+            out[pre + name + ".bias"] = bp[k]["b"][i]
+    mp = vp["merger"]
+    out["visual.merger.ln_q.weight"] = mp["ln_q"]["scale"]
+    out["visual.merger.ln_q.bias"] = mp["ln_q"]["bias"]
+    for k, j in (("fc1", 0), ("fc2", 2)):
+        out[f"visual.merger.mlp.{j}.weight"] = lin(mp[k]["w"])
+        out[f"visual.merger.mlp.{j}.bias"] = mp[k]["b"]
+    return out
+
+
+def tree_leaves(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(tree_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def phase_loading(cfg, model, dev, seed: int) -> dict:
+    """2B at full width and depth, from disk: ``RetakeConfig.from_yaml`` of
+    every file under configs/; the seed's random tree written under HF
+    names as two safetensors shards with ``model.safetensors.index.json``
+    and read back by ``load_safetensors(..., device="cuda")``, every leaf
+    bit-identical (load seconds, peak memory); a weight-only int8 tree
+    through ``save_params`` -> ``load_checked``, a 64-frame request from
+    each tree with the same tokens and first logits; the port demo's
+    ``main`` on random weights at 64 frames. Returns the demo's launches."""
+    import contextlib
+    import glob
+    import io
+
+    from retake_tpu_torch import demo
+    from retake_tpu_torch.models.qwen2_vl import params as params_lib
+    from retake_tpu_torch.models.qwen2_vl.model import Qwen2VLModel
+    from retake_tpu_torch.ops.quantization import quantize_llm_int8
+    from retake_tpu_torch.runtime.engine import Qwen2VLEngine
+    from retake_tpu_torch.utils import checkpoint, safetensors_io
+    from retake_tpu_torch.utils.config import RetakeConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    yamls = sorted(glob.glob(os.path.join(root, "configs", "**", "*.yaml"), recursive=True))
+    parsed = {os.path.relpath(p, root): RetakeConfig.from_yaml(p) for p in yamls}
+    log(f"[21] from_yaml: {len(parsed)} config files, model_name "
+        f"{sorted({c.model_name for c in parsed.values()})}, attn_implementation "
+        f"{sorted({c.attn_implementation for c in parsed.values()})}")
+    check(len(parsed) == 15, len(parsed))
+
+    params = params_lib.init_params(cfg, seed=seed, device=dev)
+    check(torch.equal(params["layers"]["q"]["w"], model.layers.q.w), "the phase-4 weights")
+    with tempfile.TemporaryDirectory() as tmp:
+        hf = hf_tensors_of(cfg, params)
+        names = sorted(hf)
+        halves = [names[: len(names) // 2], names[len(names) // 2 :]]
+        weight_map = {}
+        t0 = time.perf_counter()
+        for i, part in enumerate(halves):
+            shard = f"model-{i + 1:05d}-of-00002.safetensors"
+            safetensors_io.save_file({n: hf[n] for n in part}, os.path.join(tmp, shard))
+            weight_map.update({n: shard for n in part})
+        with open(os.path.join(tmp, "model.safetensors.index.json"), "w") as f:
+            json.dump({"metadata": {}, "weight_map": weight_map}, f)
+        del hf
+        gb = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp)) / 1e9
+        log(f"[21] wrote the random 2B tree as 2 HF shards ({gb:.2f} GB) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loaded = params_lib.load_safetensors(tmp, cfg, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        want, got = tree_leaves(params), tree_leaves(loaded)
+        same = set(want) == set(got) and all(
+            got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]) for k in want)
+        tree_gb = sum(x.numel() * x.element_size() for x in want.values()) / 1e9
+        log(f"[21] load_safetensors (index, 2 shards) -> cuda in {load_s:.2f} s: {len(got)} "
+            f"leaves bit-identical {same}; peak memory above the resident {peak / 2**30:.2f} GiB "
+            f"for a {tree_gb:.2f} GB tree")
+        check(same, "HF shards -> load_safetensors")
+        del loaded, got
+
+        ckpt = os.path.join(tmp, "quantized")
+        qtree = quantize_llm_int8(params)
+        t0 = time.perf_counter()
+        checkpoint.save_params(qtree, ckpt, meta={"model_name": "qwen2_vl", "weights": "int8"})
+        save_s = time.perf_counter() - t0
+        rt8 = RetakeConfig.from_dict(dict(RETAKE_CONFIG, quantization="int8"))
+        t0 = time.perf_counter()
+        qloaded = checkpoint.load_checked(ckpt, rt8, "qwen2_vl", device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        qa, qb = tree_leaves(qtree), tree_leaves(qloaded)
+        same = set(qa) == set(qb) and all(
+            qa[k].dtype == qb[k].dtype and torch.equal(qa[k], qb[k]) for k in qa)
+        check(same, "save_params -> load_checked")
+        ids, patches, grid = build_request(cfg, 64, dev, seed + 21)
+        res = [Qwen2VLEngine(cfg, Qwen2VLModel(cfg, tree), rt8, device=dev).generate(
+            ids, patches, grid, max_new_tokens=MAX_NEW_TOKENS) for tree in (qtree, qloaded)]
+        same_req = (np.array_equal(res[0].tokens, res[1].tokens)
+                    and np.array_equal(res[0].first_logits, res[1].first_logits))
+        log(f"[21] int8 checkpoint: save {save_s:.2f} s, load_checked {load_s:.2f} s, leaves "
+            f"bit-identical {same}; 64-frame request from each tree: tokens and first logits "
+            f"identical {same_req} ({res[0].tokens[:4].tolist()})")
+        check(same_req, "requests from the saved and the loaded int8 tree")
+        del qtree, qloaded, qa, qb, res, patches
+    del params
+    torch.cuda.empty_cache()
+
+    out = io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = demo.main(["--random-weights", "--frames", "64", "--json", "--device", str(dev),
+                        "--config", os.path.join(root, "configs", "retake_demo.yaml")])
+    n = read_counts()
+    lines = out.getvalue().strip().splitlines()
+    answers = json.loads(lines[-1])
+    log(f"[21] demo --random-weights --frames 64 --json: exit {rc} in "
+        f"{time.perf_counter() - t0:.1f} s; answers {answers['answers']} (random weights), "
+        f"token counts {[len(t) for t in answers['tokens']]}; launches {n}; "
+        + " | ".join(line for line in lines if line.startswith("[")))
+    check(rc == 0 and len(answers["tokens"]) == 3 and all(answers["tokens"]), answers)
+    # configs/retake_demo.yaml selects "flash": K3 in the ViT, no K1 / K2
+    check(n["K3"] > 0 and n["K1"] == n["K2"] == 0, n)
+    torch.cuda.empty_cache()
+    return n
+
+
+def llava_request(cfg, frames: int, dev, seed: int):
+    """ids (16 prompt ids, the video span of frames x 196 + 1, a 48-id
+    question) and random 384x384 uint8 frames drawn on the card."""
+    rng = np.random.default_rng(seed)
+    ids = np.array(rng.integers(10, 1000, size=16).tolist()
+                   + [cfg.video_token_id] * (frames * cfg.tokens_per_frame + 1)
+                   + rng.integers(10, 1000, size=48).tolist(), dtype=np.int64)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    s = cfg.vision.image_size
+    vid = torch.randint(0, 256, (frames, s, s, 3), generator=gen, device=dev, dtype=torch.uint8)
+    return ids, vid
+
+
+def phase_llava(dev, args) -> dict:
+    """LLaVA-Video-7B at full width and depth (``LlavaOnevisionConfig()``),
+    random bf16 weights drawn on the card from the seed, under
+    configs/llava_video/retake_llava-video_videomme.yaml with
+    attn_implementation "pallas": one request at ``--llava-frames`` (cold,
+    warm with stage times, bit-exact), launches (K1 = 28 x plan steps,
+    K2 = 28 x video chunks, no K3), SigLIP's time; at 64 frames kernel vs
+    plain arm and "flash" vs "pallas", prefix reuse, a 3-request
+    ``generate_batch`` (K4) and a W8A8 request against bf16. Returns the
+    launches by path."""
+    from retake_tpu_torch.models.llava_onevision import params as lparams
+    from retake_tpu_torch.models.llava_onevision.config import LlavaOnevisionConfig
+    from retake_tpu_torch.models.llava_onevision.model import LlavaOnevisionModel
+    from retake_tpu_torch.ops import quantization as q8
+    from retake_tpu_torch.runtime.engine import plan_chunks
+    from retake_tpu_torch.runtime.llava_engine import LlavaOnevisionEngine
+    from retake_tpu_torch.utils.config import RetakeConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    rt = dataclasses.replace(RetakeConfig.from_yaml(os.path.join(root, LLAVA_YAML)),
+                             attn_implementation="pallas")
+    cfg = LlavaOnevisionConfig()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lparams.init_params(cfg, seed=args.seed, device=dev)
+    model = LlavaOnevisionModel(cfg, params)
+    torch.cuda.synchronize()
+    gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    vgb = sum(p.numel() * p.element_size() for p in model.vision_tower.parameters()) / 1e9
+    log(f"[22] LLaVA-Video-7B built in {time.perf_counter() - t0:.1f} s: {gb:.2f} GB of bf16 "
+        f"weights ({vgb:.2f} GB SigLIP), text {cfg.text.num_hidden_layers} x "
+        f"{cfg.text.hidden_size}, heads {cfg.text.num_attention_heads}/"
+        f"{cfg.text.num_key_value_heads}; SigLIP {cfg.vision.num_hidden_layers} x "
+        f"{cfg.vision.hidden_size}, {cfg.vision.num_patches} patches -> {cfg.tokens_per_frame} "
+        f"tokens a frame; config {LLAVA_YAML} (frame_chunk_size {rt.frame_chunk_size}, "
+        f"chunked_prefill_frames {rt.chunked_prefill_frames}, max_input_length "
+        f"{rt.kv.max_input_length}, YaRN x{rt.scaling_factor}), attn pallas")
+    engine = LlavaOnevisionEngine(cfg, model, rt, device=dev)
+    paths = {}
+    frames = args.llava_frames
+    ids, vid = llava_request(cfg, frames, dev, args.seed)
+    ratio = rt.compression_ratio_for(len(ids))
+    plan, final_len, _ = plan_chunks(ids, cfg.video_token_id, engine.get_chunk_tokens(frames),
+                                     ratio, ratio < 1.0)
+    n_video = sum(p["kind"] == "video" for p in plan)
+    log(f"[22] request: {frames} frames of 384x384, {len(ids)} tokens, ratio {ratio:.4f}, "
+        f"{len(plan)} prefill steps ({n_video} video chunks, the last of "
+        f"{plan[-2]['valid']} rows), planned cache {final_len}")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res = engine.generate(ids, vid, max_new_tokens=MAX_NEW_TOKENS)
+    n = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    paths["22"] = n
+    L = cfg.text.num_hidden_layers
+    log(f"[22] cold: TTFT {res.prefill_seconds:.3f} s, decode {res.decode_seconds:.3f} s for "
+        f"{len(res.tokens) - 1} tokens, peak memory {peak / 2**30:.2f} GiB; launches {n}; tokens "
+        f"{res.tokens.tolist()}")
+    check(n["K1"] == L * len(plan) and n["K2"] == L * n_video and n["K3"] == 0
+          and n["K4"] == n["K1-int8"] == 0, (n, len(plan), n_video))
+    check(res.cache_fill == res.cache_len == final_len and np.isfinite(res.first_logits).all()
+          and ((res.tokens >= 0) & (res.tokens < cfg.text.vocab_size)).all(), res.tokens)
+    os.environ["RETAKE_PROFILE"] = "1"
+    res2 = engine.generate(ids, vid, max_new_tokens=MAX_NEW_TOKENS)
+    os.environ.pop("RETAKE_PROFILE")
+    m = int(res.cache.length)
+    same = {"tokens": np.array_equal(res.tokens, res2.tokens),
+            "first_logits": np.array_equal(res.first_logits, res2.first_logits),
+            **{f: torch.equal(getattr(res.cache, f)[:, :, :m], getattr(res2.cache, f)[:, :, :m])
+               for f in ("k", "v", "pos")}}
+    log(f"[22] warm (stage fences on): TTFT {res2.prefill_seconds:.3f} s, decode "
+        f"{res2.decode_seconds:.3f} s; stages "
+        + json.dumps({k: round(v, 4) for k, v in (res2.stages or {}).items()})
+        + f"; bit-exact repeat {same}")
+    check(all(same.values()), same)
+    del res, res2
+    # SigLIP alone: one frame_chunk_size chunk (plain attention, fp32 logits)
+    chunk = vid[: rt.frame_chunk_size]
+    ms = cuda_ms(lambda: engine._tower(chunk), 3, 1)
+    log(f"[22] SigLIP tower, {chunk.shape[0]} frames (26 layers, plain attention with fp32 "
+        f"logits): {ms:.2f} ms a chunk, {ms * frames / chunk.shape[0] / 1e3:.3f} s for "
+        f"{frames} frames (CUDA events, median of 3)")
+    del vid, chunk
+    torch.cuda.empty_cache()
+
+    # 64 frames: kernel vs plain arm, and the published "flash" arm
+    rd64 = dataclasses.replace(rt, kv=dataclasses.replace(rt.kv, max_input_length=8000))
+    ids6, vid6 = llava_request(cfg, 64, dev, args.seed + 1)
+    out, ttft, launches = {}, {}, {}
+    for impl in ("pallas", "xla", "flash"):
+        eng = LlavaOnevisionEngine(cfg, model, dataclasses.replace(rd64, attn_implementation=impl),
+                                   device=dev)
+        zero_counts()
+        out[impl] = eng.generate(ids6, vid6, max_new_tokens=MAX_NEW_TOKENS)
+        launches[impl] = read_counts()
+        ttft[impl] = round(out[impl].prefill_seconds, 3)
+        del eng
+        torch.cuda.empty_cache()
+    a = out["pallas"]
+    for impl in ("xla", "flash"):
+        b = out[impl]
+        rel = float(np.abs(a.first_logits - b.first_logits).max() / np.abs(b.first_logits).max())
+        kept = kept_agreement(a.cache, b.cache, a.cache_fill)
+        log(f"[22] 64 frames, pallas vs {impl}: cache {a.cache_fill}; TTFT pallas "
+            f"{ttft['pallas']} s, {impl} {ttft[impl]} s; first logits rel max|diff| {rel:.4f} "
+            f"(bound {LLAVA_REL_LOGIT_TOL}), kept entries in common {kept:.4f} (bound "
+            f"{LLAVA_MIN_KEPT}); launches {launches[impl]}; tokens {a.tokens[:4].tolist()} / "
+            f"{b.tokens[:4].tolist()}")
+        check(a.cache_fill == b.cache_fill == a.cache_len < len(ids6), (a.cache_fill, b.cache_fill))
+        check(rel <= LLAVA_REL_LOGIT_TOL and kept >= LLAVA_MIN_KEPT, (impl, rel, kept))
+        check(launches[impl]["K1"] == launches[impl]["K2"] == 0, launches[impl])
+    plain_kept = kept_agreement(out["xla"].cache, out["flash"].cache, a.cache_fill)
+    log(f"[22] 64 frames, the two plain arms (xla vs flash, the same plain PivotKV scores): "
+        f"kept entries in common {plain_kept:.4f}")
+    paths["22 64 frames"] = launches["pallas"]
+    bf16_logits = a.first_logits
+    del out, a, b
+    torch.cuda.empty_cache()
+
+    # prefix reuse: two questions bit-exact against inline
+    questions = [ids6, np.concatenate([ids6[:-48], np.random.default_rng(args.seed + 2).integers(
+        10, 1000, size=48)])]
+    eng = LlavaOnevisionEngine(cfg, model, rd64, device=dev)
+    prefix = eng.encode_prefix(ids6, vid6, max_new_tokens=MAX_NEW_TOKENS)
+    for i, q in enumerate(questions):
+        inline = eng.generate(q, vid6, max_new_tokens=MAX_NEW_TOKENS)
+        zero_counts()
+        reused = eng.generate(q, prefix=prefix, max_new_tokens=MAX_NEW_TOKENS)
+        n = read_counts()
+        same = (np.array_equal(reused.tokens, inline.tokens)
+                and np.array_equal(reused.first_logits, inline.first_logits))
+        log(f"[22] prefix question {i}: TTFT {reused.prefill_seconds:.3f} s (inline "
+            f"{inline.prefill_seconds:.3f} s), bit-exact {same}; launches {n}")
+        check(same and n["K1"] == L and n["K2"] == 0, (i, same, n))
+    del prefix, inline, reused
+
+    # generate_batch: three requests, batched decode through K4
+    reqs = []
+    for i, f in enumerate((64, 128, 64)):
+        r_ids, r_vid = llava_request(cfg, f, dev, args.seed + 30 + i)
+        reqs.append(dict(input_ids=r_ids, pixel_values_videos=r_vid))
+    zero_counts()
+    t0 = time.perf_counter()
+    batch = eng.generate_batch(reqs, max_new_tokens=MAX_NEW_TOKENS)
+    wall = time.perf_counter() - t0
+    n = read_counts()
+    steps = max(len(x.tokens) for x in batch) - 1
+    log(f"[22] generate_batch (64, 128, 64 frames) in {wall:.3f} s: launches {n}; tokens "
+        f"{[x.tokens[:4].tolist() for x in batch]}")
+    check(n["K4"] >= L * steps > 0 and n["K3"] == 0, (n, steps))
+    check(all(np.isfinite(x.first_logits).all() for x in batch), "batch logits")
+    paths["22 generate_batch"] = n
+    del eng, reqs, batch
+    torch.cuda.empty_cache()
+
+    # W8A8: the same weights quantized (text, SigLIP, projector)
+    del engine
+    qmodel = LlavaOnevisionModel(cfg, q8.quantize_siglip_int8(q8.quantize_llm_int8(params)))
+    check(qmodel.int8 and qmodel.vision_int8, "int8 weights")
+    eng = LlavaOnevisionEngine(cfg, qmodel, dataclasses.replace(rd64, quantization="w8a8"),
+                               device=dev)
+    zero_counts()
+    res = eng.generate(ids6, vid6, max_new_tokens=MAX_NEW_TOKENS)
+    n = read_counts()
+    a, b = res.first_logits, bf16_logits
+    rel = float(np.abs(a - b).max() / np.abs(b).max())
+    cos = float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)))
+    log(f"[22] W8A8 (text, SigLIP, projector int8), 64 frames: TTFT {res.prefill_seconds:.3f} s; "
+        f"first logits vs bf16 rel max|diff| {rel:.4f} (bound {W8_REL_LOGIT_TOL}), cosine "
+        f"{cos:.5f} (bound {W8_MIN_COSINE}); launches {n}")
+    check(np.isfinite(a).all() and rel <= W8_REL_LOGIT_TOL and cos >= W8_MIN_COSINE, (rel, cos))
+    paths["22 w8a8"] = n
+    del eng, qmodel, model, params, res, vid6
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=512, help="raw video frames (2048 = bench)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="profile one more warm request and decode step")
+    ap.add_argument("--llava-frames", type=int, default=256,
+                    help="phase 22's LLaVA-Video request (1024 = the published config)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1827,6 +2320,7 @@ def main() -> int:
     phase_kernels(dev, records)
     phase_kernels_int8(dev, records)
     phase_kernels_new_shapes(dev, records)
+    phase_kernels_llava(dev, records)
     log("[3] kernels match their plain versions")
 
     # 4-6. 2B in bf16: one request, its repeat, kernel vs plain path
@@ -1884,6 +2378,12 @@ def main() -> int:
     t_rest = walls[-1] - t_rest
     log(f"[17-20] serving, flash, MA-LLM: {t_rest:.1f} s (" + ", ".join(
         f"{p}: {w:.1f} s" for p, w in zip(range(17, 21), each)) + ")")
+
+    # 21. weights, configs and the demo from disk (2B)
+    t21 = time.perf_counter()
+    paths["21 demo"] = phase_loading(cfg, model, dev, args.seed)
+    t21 = time.perf_counter() - t21
+    log(f"[21] loading and the demo: {t21:.1f} s")
     del model
     torch.cuda.empty_cache()
 
@@ -1907,6 +2407,14 @@ def main() -> int:
     paths.update({"10": launches7, "11": serve7})
     # 14 (7B): the prefix of a 64-frame video in the serving config (int8 KV)
     phase_reuse(cfg7, model7, rd7, dev, 64, args.seed, "14 7B", features=False)
+    del model7
+    torch.cuda.empty_cache()
+
+    # 22. LLaVA-Video-7B at full width and depth
+    t22 = time.perf_counter()
+    paths.update(phase_llava(dev, args))
+    t22 = time.perf_counter() - t22
+    log(f"[22] LLaVA-Video-7B: {t22:.1f} s")
 
     # the kernels line: K1-K3 from the 2B request (phase 4), K4 from the 2B
     # server (phase 7), K1-int8 from the 7B request (phase 10), K4-int8 from
@@ -1919,7 +2427,7 @@ def main() -> int:
         for key in ("K1", "K1-int8", "K2", "K3", "K4", "K4-int8")
     ]}
     log(f"[end] chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s (phases 12-16 "
-        f"{t_new:.1f} s, 17-20 {t_rest:.1f} s)")
+        f"{t_new:.1f} s, 17-20 {t_rest:.1f} s, 21 {t21:.1f} s, 22 {t22:.1f} s)")
     log(smi)
     print(json.dumps(kernel_line))
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,13 @@ each module here keeps the module path of its JAX counterpart
 
 Package map:
   device.py         the device a caller names (no silent CPU fallback)
-  models/qwen2_vl/  config dataclasses, weights (random init, int8 on the
-                    device, JAX bridge), ``VisionTower`` / ``TextDecoder`` /
+  demo.py           the end-to-end demo (``python3 -m retake_tpu_torch.demo``)
+  models/qwen2_vl/  config dataclasses (HF config.json parsing), weights
+                    (random init, int8 on the device, HF checkpoints, JAX
+                    bridge), ``VisionTower`` / ``TextDecoder`` /
                     ``Qwen2VLModel``
+  models/llava_onevision/  LLaVA-OneVision / LLaVA-Video: config, SigLIP,
+                    anyres packing, weights, ``LlavaOnevisionModel``
   ops/              M-RoPE/YaRN, attention (and the blocked "flash" arm),
                     PivotKV, DPSelect and MA-LLM (plain torch);
                     ``quantization.py``: int8 quantizers, weight-only and
@@ -29,10 +33,12 @@ Package map:
                     ``sampling.py``: the seeded sampler; ``serve.py``: the
                     continuous-batching server with its vision-feature and
                     prefix caches and its online mode;
-                    ``http_server.py``: the standard-library HTTP front end
-  data/             host video loading and the Qwen2-VL processor
+                    ``http_server.py``: the standard-library HTTP front end;
+                    ``llava_engine.py``: the LLaVA engine on the same core
+  data/             host video loading, the Qwen2-VL and LLaVA processors
                     (jax-free copies of ``retake_tpu/data``)
-  utils/            config surface, host positions, stage timing
+  utils/            config surface (YAML), host positions, stage timing,
+                    safetensors I/O, pre-quantized checkpoints
 """
 
 __version__ = "0.1.0"

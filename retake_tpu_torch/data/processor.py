@@ -6,11 +6,16 @@ order the vision tower expects, plus the prompt with the video placeholder
 expanded to the token count of the processed grid. The tokenizer is passed
 in (a HF tokenizer, or a stub in tests and on machines without one).
 
+``LlavaOnevisionVideoProcessor`` does the same for LLaVA-OneVision /
+LLaVA-Video: square frames, anyres image tiles, the placeholder span of
+frames x tokens per frame + 1. ``from_pretrained`` loads a HF tokenizer
+(``transformers`` is imported inside it).
+
 Copied without the original's native C++ normalize + patchify fast path
 (``retake_tpu.native``, which the port may not import; the numpy path here
-computes the same function) and without ``from_pretrained`` (loading a
-tokenizer belongs with checkpoint loading, not ported yet). ``tests/test_torch_data.py`` pins this copy to
-the original. PIL is imported lazily, as in the original.
+computes the same function). ``tests/test_torch_data.py`` and
+``tests/test_torch_llava.py`` pin this copy to the original. PIL is
+imported lazily, as in the original.
 """
 
 from __future__ import annotations
@@ -154,6 +159,12 @@ class Qwen2VLProcessor:
         self.min_pixels = min_pixels
         self.max_pixels = max_pixels
 
+    @staticmethod
+    def from_pretrained(path: str, **kwargs) -> "Qwen2VLProcessor":
+        from transformers import AutoTokenizer
+
+        return Qwen2VLProcessor(AutoTokenizer.from_pretrained(path), **kwargs)
+
     def __call__(
         self,
         question: str,
@@ -227,3 +238,106 @@ class Qwen2VLProcessor:
         return self.tokenizer.decode(
             [int(t) for t in token_ids], skip_special_tokens=True
         )
+
+
+class LlavaOnevisionVideoProcessor:
+    """LLaVA-OneVision / LLaVA-Video preprocessing.
+
+    HF LlavaOnevisionVideoProcessor semantics: every frame is resized to a
+    square image_size x image_size (bicubic); normalization to [-1, 1] happens
+    on the device (models/llava_onevision/siglip.patchify_frames). The
+    prompt's single video placeholder expands to frames * tokens_per_frame + 1
+    tokens (+1 = image_newline).
+    """
+
+    def __init__(
+        self,
+        tokenizer,
+        *,
+        video_token_id: int = 151647,
+        image_token_id: int = 151646,
+        image_size: int = 384,
+        patch_size: int = 14,
+        tokens_per_frame: int = 196,
+        image_grid_pinpoints=None,
+        vision_aspect_ratio: str = "anyres_max_9",
+    ):
+        from retake_tpu_torch.models.llava_onevision.config import LlavaOnevisionConfig
+
+        self.tokenizer = tokenizer
+        self.video_token_id = video_token_id
+        self.image_token_id = image_token_id
+        self.image_size = image_size
+        self.patch_size = patch_size
+        self.tokens_per_frame = tokens_per_frame
+        self.image_grid_pinpoints = tuple(
+            tuple(p) for p in (image_grid_pinpoints or LlavaOnevisionConfig.image_grid_pinpoints)
+        )
+        self.vision_aspect_ratio = vision_aspect_ratio
+
+    @staticmethod
+    def from_pretrained(path: str, **kwargs) -> "LlavaOnevisionVideoProcessor":
+        from transformers import AutoTokenizer
+
+        return LlavaOnevisionVideoProcessor(AutoTokenizer.from_pretrained(path), **kwargs)
+
+    def _resize_square(self, frame: np.ndarray) -> np.ndarray:
+        from PIL import Image
+
+        s = self.image_size
+        if frame.shape[0] == s and frame.shape[1] == s:
+            return frame
+        img = Image.fromarray(frame)
+        return np.asarray(img.resize((s, s), resample=Image.BICUBIC))
+
+    def __call__(self, question: str, frames=None, images=None,
+                 num_frames: Optional[int] = None):
+        """``num_frames`` emits the video placeholder tokens without
+        reprocessing pixels (VideoFeatures reuse; see Qwen2VLProcessor's
+        ``video_grid``): ``pixel_values_videos`` is None in that case."""
+        from retake_tpu_torch.models.llava_onevision import anyres
+
+        vision_ids: List[int] = []
+        pixels = None
+        img_tiles = img_sizes = None
+        if images:
+            grid_side = self.image_size // self.patch_size
+            tiles_list, sizes = [], []
+            for img in images:
+                tiles, hw = anyres.image_to_anyres_tiles(
+                    img, tile_size=self.image_size, pinpoints=self.image_grid_pinpoints,
+                )
+                tiles_list.append(tiles)
+                sizes.append(hw)
+                n_tok = anyres.packed_token_count(
+                    hw, grid_side=grid_side, pinpoints=self.image_grid_pinpoints,
+                    tile_size=self.image_size, vision_aspect_ratio=self.vision_aspect_ratio,
+                )
+                vision_ids += [self.image_token_id] * n_tok
+            max_p = max(t.shape[0] for t in tiles_list)
+            img_tiles = np.zeros(
+                (len(tiles_list), max_p, self.image_size, self.image_size, 3), np.uint8
+            )
+            for i, t in enumerate(tiles_list):
+                img_tiles[i, : t.shape[0]] = t
+            img_sizes = np.asarray(sizes)
+        if frames is not None:
+            pixels = np.stack([self._resize_square(f) for f in frames])
+            num_frames = len(frames)
+        if num_frames is not None:
+            vision_ids += [self.video_token_id] * (num_frames * self.tokens_per_frame + 1)
+        pre, post = CHAT_TEMPLATE.split("{video}")
+        post = post.format(question=question)
+        input_ids = (
+            list(self.tokenizer.encode(pre)) + vision_ids + list(self.tokenizer.encode(post))
+        )
+        return {
+            "input_ids": np.asarray(input_ids, np.int64),
+            "pixel_values_videos": pixels,
+            "video_grid_thw": None,
+            "pixel_values": img_tiles,
+            "image_sizes": img_sizes,
+        }
+
+    def decode(self, token_ids) -> str:
+        return self.tokenizer.decode([int(t) for t in token_ids], skip_special_tokens=True)

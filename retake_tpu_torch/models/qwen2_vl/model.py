@@ -17,12 +17,3 @@ class Qwen2VLModel(TextDecoder):
     def __init__(self, cfg: Qwen2VLConfig, params: dict):
         super().__init__(cfg, params)
         self.visual = VisionTower(cfg.vision, params["visual"])
-
-    @property
-    def device(self):
-        return self.final_ln.device
-
-    @property
-    def dtype(self):
-        """The activation dtype: a float leaf (the embedding may be int8)."""
-        return self.final_ln.dtype

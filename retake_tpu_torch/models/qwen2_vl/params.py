@@ -1,5 +1,6 @@
-"""Qwen2-VL weights for the port: random init, the JAX weight bridge, and
-the nested-parameter module (port of ``retake_tpu/models/qwen2_vl/params.py``).
+"""Qwen2-VL weights for the port: random init, HF checkpoint loading, the
+JAX weight bridge, and the nested-parameter module (port of
+``retake_tpu/models/qwen2_vl/params.py``).
 
 The parameter tree keeps the JAX package's keys and layouts: linears are
 input-major ``[in, out]`` and per-layer tensors are stacked ``[L, ...]``:
@@ -12,13 +13,21 @@ input-major ``[in, out]`` and per-layer tensors are stacked ``[L, ...]``:
 As module parameters these keys become dotted names (``layers.q.w``).
 An int8 linear is ``{'w': int8, 'scale': f32}`` (``ops/quantization.py``),
 and so is a quantized ``embed_tokens`` (per-row scale) or ``lm_head``.
-Loading HF checkpoints is not ported yet.
+
+HF checkpoints (``from_hf_tensors``, ``load_safetensors``,
+``from_torch_model``) map to this tree with the JAX loader's renames,
+``[out, in] -> [in, out]`` transposes and layer stacking; the safetensors
+loader reads one tensor at a time (``utils/safetensors_io.py``) and stacks
+each layer group on the device in the target dtype.
 """
 
 from __future__ import annotations
 
+import json
 import math
-from typing import Tuple
+import os
+import re
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -50,9 +59,11 @@ def init_params(
     device="cpu",
     quantize_int8: bool = False,
     quantize_vit_int8: bool = False,
+    vision: bool = True,
 ) -> dict:
     """Random parameter tree (tests and benchmarks at reference geometry),
-    drawn on ``device`` from a ``torch.Generator`` seeded with ``seed``.
+    drawn on ``device`` from a ``torch.Generator`` seeded with ``seed``;
+    ``vision=False`` leaves out the Qwen2-VL ViT (the LLaVA text decoder).
     Matrices are N(0, 1/fan_in), norms one, biases zero, the embedding
     N(0, 0.02^2), as in the JAX init (the draws themselves differ).
 
@@ -99,6 +110,19 @@ def init_params(
         "up": qw(l, d, m),
         "down": qw(l, m, d),
     }
+    params = {"layers": layers, "final_ln": ones(d)}
+    if vision:  # drawn before the embedding, as always
+        params["visual"] = _init_vision(cfg, w, vqw, zeros, ones)
+    embed = w(cfg.vocab_size, d, scale=0.02)
+    params["embed_tokens"] = q8.quantize_embedding(embed) if quantize_int8 else embed
+    del embed
+    if not cfg.tie_word_embeddings:
+        head = w(d, cfg.vocab_size)
+        params["lm_head"] = q8.quantize_weight(head) if quantize_int8 else head
+    return params
+
+
+def _init_vision(cfg: Qwen2VLConfig, w, vqw, zeros, ones) -> dict:
     v = cfg.vision
     vd, vl, vm = v.embed_dim, v.depth, v.embed_dim * v.mlp_ratio
     merged = vd * v.spatial_merge_size**2
@@ -118,18 +142,129 @@ def init_params(
             "fc2": {**vqw(merged, v.hidden_size), "b": zeros(v.hidden_size)},
         },
     }
-    embed = w(cfg.vocab_size, d, scale=0.02)
-    params = {
-        "embed_tokens": q8.quantize_embedding(embed) if quantize_int8 else embed,
-        "layers": layers,
-        "final_ln": ones(d),
-        "visual": visual,
+    return visual
+
+
+def _canonical(name: str) -> str:
+    """Normalize HF parameter names across transformers versions."""
+    name = re.sub(r"^model\.", "", name)
+    name = re.sub(r"^language_model\.", "", name)
+    name = re.sub(r"^visual\.", "visual.", name)
+    return name
+
+
+class HFLoader:
+    """Reads HF tensors by name through ``get`` (host tensors, any dtype)
+    and lays them out on ``device`` in ``dtype``, one stack at a time."""
+
+    def __init__(self, get: Callable[[str], torch.Tensor], dtype, device):
+        self.get, self.dtype, self.device = get, dtype, device
+
+    def t(self, name: str) -> torch.Tensor:
+        return torch.as_tensor(self.get(name)).to(device=self.device, dtype=self.dtype)
+
+    def lin(self, name: str) -> torch.Tensor:  # torch Linear [out, in] -> [in, out]
+        return self.t(name).transpose(-1, -2).contiguous()
+
+    def stack(self, fmt: str, n: int) -> torch.Tensor:
+        return torch.stack([self.t(fmt.format(i)) for i in range(n)])
+
+    def stack_lin(self, fmt: str, n: int) -> torch.Tensor:
+        return torch.stack([self.lin(fmt.format(i)) for i in range(n)])
+
+
+def text_tree(ld: HFLoader, num_layers: int, tied: bool, prefix: str = "") -> dict:
+    """The Qwen2 decoder's leaves (embed_tokens, layers, final_ln and the
+    untied lm_head) under HF names ``{prefix}layers.{i}...``."""
+    l_ = num_layers
+    attn, mlp = prefix + "layers.{}.self_attn.", prefix + "layers.{}.mlp."
+    layers = {
+        "input_ln": ld.stack(prefix + "layers.{}.input_layernorm.weight", l_),
+        **{k: {"w": ld.stack_lin(attn + f"{k}_proj.weight", l_),
+               "b": ld.stack(attn + f"{k}_proj.bias", l_)} for k in ("q", "k", "v")},
+        "o": {"w": ld.stack_lin(attn + "o_proj.weight", l_)},
+        "post_ln": ld.stack(prefix + "layers.{}.post_attention_layernorm.weight", l_),
+        **{k: {"w": ld.stack_lin(mlp + f"{k}_proj.weight", l_)} for k in ("gate", "up", "down")},
     }
-    del embed
-    if not cfg.tie_word_embeddings:
-        head = w(d, cfg.vocab_size)
-        params["lm_head"] = q8.quantize_weight(head) if quantize_int8 else head
-    return params
+    tree = {"embed_tokens": ld.t(prefix + "embed_tokens.weight"), "layers": layers,
+            "final_ln": ld.t(prefix + "norm.weight")}
+    if not tied:
+        tree["lm_head"] = ld.lin("lm_head.weight")
+    return tree
+
+
+def _tree_from(cfg: Qwen2VLConfig, ld: HFLoader) -> dict:
+    vl = cfg.vision.depth
+    blk = "visual.blocks.{}."
+    patch_w = ld.t("visual.patch_embed.proj.weight")  # [D, C, tps, ps, ps]
+    visual = {
+        "patch_embed": {"w": patch_w.reshape(patch_w.shape[0], -1).T.contiguous()},
+        "blocks": {
+            "ln1": {"scale": ld.stack(blk + "norm1.weight", vl),
+                    "bias": ld.stack(blk + "norm1.bias", vl)},
+            **{k: {"w": ld.stack_lin(blk + f"{name}.weight", vl),
+                   "b": ld.stack(blk + f"{name}.bias", vl)}
+               for k, name in (("qkv", "attn.qkv"), ("proj", "attn.proj"),
+                               ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2"))},
+            "ln2": {"scale": ld.stack(blk + "norm2.weight", vl),
+                    "bias": ld.stack(blk + "norm2.bias", vl)},
+        },
+        "merger": {
+            "ln_q": {"scale": ld.t("visual.merger.ln_q.weight"),
+                     "bias": ld.t("visual.merger.ln_q.bias")},
+            "fc1": {"w": ld.lin("visual.merger.mlp.0.weight"), "b": ld.t("visual.merger.mlp.0.bias")},
+            "fc2": {"w": ld.lin("visual.merger.mlp.2.weight"), "b": ld.t("visual.merger.mlp.2.bias")},
+        },
+    }
+    tree = text_tree(ld, cfg.num_hidden_layers, cfg.tie_word_embeddings)
+    tree["visual"] = visual
+    return tree
+
+
+def from_hf_tensors(cfg: Qwen2VLConfig, tensors: Dict[str, torch.Tensor],
+                    dtype: torch.dtype = torch.bfloat16, device="cuda") -> dict:
+    """The parameter tree from a ``{hf_name: tensor or ndarray}`` mapping."""
+    t = {_canonical(k): v for k, v in tensors.items()}
+    return _tree_from(cfg, HFLoader(t.__getitem__, dtype, device))
+
+
+def checkpoint_reader(path: str, canonical: Callable[[str], str]) -> Callable[[str], torch.Tensor]:
+    """``get(canonical name) -> host tensor`` over a checkpoint directory's
+    safetensors shards (``model.safetensors.index.json`` when present);
+    each call reads one tensor from its shard."""
+    from retake_tpu_torch.utils.safetensors_io import SafeFile
+
+    index_file = os.path.join(path, "model.safetensors.index.json")
+    if os.path.exists(index_file):
+        with open(index_file) as f:
+            shards = sorted(set(json.load(f)["weight_map"].values()))
+    else:
+        shards = [f for f in sorted(os.listdir(path)) if f.endswith(".safetensors")]
+    where = {}
+    for shard in shards:
+        sf = SafeFile(os.path.join(path, shard))
+        for key in sf.keys():
+            where[canonical(key)] = (sf, key)
+
+    def get(name: str) -> torch.Tensor:
+        sf, key = where[name]
+        return sf.tensor(key)
+
+    return get
+
+
+def load_safetensors(path: str, cfg: Qwen2VLConfig, dtype: torch.dtype = torch.bfloat16,
+                     device="cuda") -> dict:
+    """An HF checkpoint directory (one file or index-sharded) -> the
+    parameter tree on ``device``, read one tensor at a time."""
+    return _tree_from(cfg, HFLoader(checkpoint_reader(path, _canonical), dtype, device))
+
+
+def from_torch_model(cfg: Qwen2VLConfig, torch_model, dtype: torch.dtype = torch.bfloat16,
+                     device="cuda") -> dict:
+    """A live HF ``Qwen2VLForConditionalGeneration`` -> the parameter tree."""
+    sd = {k: v.detach() for k, v in torch_model.state_dict().items()}
+    return from_hf_tensors(cfg, sd, dtype, device)
 
 
 def _leaf_to_torch(x, dtype, device) -> torch.Tensor:

@@ -81,6 +81,15 @@ class TextDecoder(nn.Module):
         """Are the decoder linears int8 (``quantize_llm_int8``)?"""
         return "scale" in self.layers.q
 
+    @property
+    def device(self):
+        return self.final_ln.device
+
+    @property
+    def dtype(self):
+        """The activation dtype: a float leaf (the embedding may be int8)."""
+        return self.final_ln.dtype
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.to(torch.float32)
@@ -122,7 +131,11 @@ def _inv_freq(cfg: Qwen2VLConfig, device: str) -> Tuple[torch.Tensor, float]:
 
 
 def _mrope_tables(cfg, inv_freq, pos3, attention_scaling, dtype):
-    """M-RoPE cos/sin [S, D] for positions [3, S]."""
+    """RoPE cos/sin [S, D] for positions [3, S]: M-RoPE, or 1-D RoPE over
+    row 0 when ``mrope_section`` is None (the LLaVA-OneVision Qwen2
+    decoder)."""
+    if cfg.mrope_section is None:
+        return rope.compute_cos_sin(inv_freq, pos3[0], attention_scaling, dtype)
     cos3, sin3 = rope.compute_cos_sin(inv_freq, pos3[:, None, :], attention_scaling, dtype)
     return (
         rope.select_mrope(cos3, cfg.mrope_section)[0],
@@ -168,12 +181,20 @@ def _layer(
     cpos: torch.Tensor,  # [3, budget]
     cks=None,  # [KV, budget] f32 scales of an int8 cache
     cvs=None,
+    attn_budget=None,  # host int: the cache prefix the attention reads; None = all
 ):
     """One decoder layer over one chunk; returns (hidden, (k, v, pos, k
     scales, v scales) block); the scales are None unless the blocks are
-    already int8."""
+    already int8. ``attn_budget`` windows the cache for the plain
+    attention arms (views, no copy); K1 takes the whole buffers, since it
+    reads only the tiles below ``cache_len`` and needs contiguous tensors."""
     kv_heads, n_heads = cfg.num_key_value_heads, cfg.num_attention_heads
     s = hidden.shape[0]
+    ck_w, cv_w, cks_w, cvs_w = ck, cv, cks, cvs
+    if attn_budget is not None and attn_budget < ck.shape[1]:
+        ck_w, cv_w = ck[:, :attn_budget], cv[:, :attn_budget]
+        if cks is not None:
+            cks_w, cvs_w = cks[:, :attn_budget], cvs[:, :attn_budget]
 
     if reforge:  # continue this layer's cached temporal ids contiguously
         last = torch.clamp(cache_len - 1, min=0).to(torch.int64)
@@ -203,11 +224,11 @@ def _layer(
     if s == 1:
         if attn_impl == "xla":
             attn_out = attn_ops.chunk_prefill_attention(
-                q_rot, ck, cv, cache_len, k_rot, v, valid_len, cks, cvs
+                q_rot, ck_w, cv_w, cache_len, k_rot, v, valid_len, cks_w, cvs_w
             )
         else:  # append-free single-token attention (no cache copy)
             attn_out = attn_ops.decode_attention_appendfree(
-                q_rot, ck, cv, cache_len, k_rot, v, cks, cvs
+                q_rot, ck_w, cv_w, cache_len, k_rot, v, cks_w, cvs_w
             )
     elif attn_impl == "pallas":
         attn_out = flash_prefill.flash_prefill_attention(
@@ -219,11 +240,11 @@ def _layer(
             fused_scores = sums.sum(dim=0) / (kv_heads * (n_heads // kv_heads))
     elif attn_impl == "flash":
         attn_out = attn_ops.flash_chunk_attention(
-            q_rot, ck, cv, cache_len, k_rot, v, valid_len, k_scale=cks, v_scale=cvs
+            q_rot, ck_w, cv_w, cache_len, k_rot, v, valid_len, k_scale=cks_w, v_scale=cvs_w
         )
     else:
         attn_out = attn_ops.chunk_prefill_attention(
-            q_rot, ck, cv, cache_len, k_rot, v, valid_len, cks, cvs
+            q_rot, ck_w, cv_w, cache_len, k_rot, v, valid_len, cks_w, cvs_w
         )
     hidden = _layer_out_mlp(cfg, lp, hidden, _unheads(attn_out), act_quant)
 
@@ -277,11 +298,14 @@ def decoder_chunk(
     reforge: bool,
     attn_impl: str = "xla",
     act_quant: bool = False,
+    attn_budget: int | None = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run one chunk through all layers; returns (hidden_out, cache). The
     cache is updated in place: each layer's block is written at offset
     ``length``, then ``length`` advances by keep_len (compress) or
-    valid_len. ``act_quant``: W8A8 linears (int8 weights required)."""
+    valid_len. ``act_quant``: W8A8 linears (int8 weights required).
+    ``attn_budget``: the static prefix of the cache buffer this chunk
+    attends to (at least the cache length when it runs); None = all."""
     if attn_impl not in ("xla", "pallas", "flash"):
         raise ValueError(f"attn_impl must be 'xla', 'pallas' or 'flash', got {attn_impl!r}")
     dev = hidden.device
@@ -296,6 +320,7 @@ def decoder_chunk(
             model.layers.layer(i), hidden, pos3, valid_len, keypatch, keep_len,
             cache.length, cache.k[i], cache.v[i], cache.pos[i],
             cache.k_scale[i] if quantized else None, cache.v_scale[i] if quantized else None,
+            attn_budget,
         )
         write_layer_block(cache, i, *blocks)
     cache.length += keep_len if compress else valid_len

@@ -163,3 +163,15 @@ def quantize_vit_int8(visual: dict) -> dict:
     out["blocks"] = _quantize_keys(visual["blocks"], _VIT_BLOCK_KEYS)
     out["merger"] = _quantize_keys(visual["merger"], ("fc1", "fc2"))
     return out
+
+
+def quantize_siglip_int8(params: dict) -> dict:
+    """Quantize the LLaVA SigLIP block linears and the multimodal projector
+    (W8A8 mode); the patch and position embeddings and the norms stay as
+    they are."""
+    out = dict(params)
+    tower = dict(params["vision_tower"])
+    tower["blocks"] = _quantize_keys(tower["blocks"], ("q", "k", "v", "out", "fc1", "fc2"))
+    out["vision_tower"] = tower
+    out["projector"] = _quantize_keys(params["projector"], ("linear_1", "linear_2"))
+    return out

@@ -57,7 +57,10 @@ has it, while the ViT still runs K3 (the JAX ViT always takes its kernel);
 ``"xla"`` is the plain path everywhere. Visual compression: DPSelect
 (``Keyframe``), MA-LLM and MA-LLM-hard (``ops/dpselect.malm_compress``).
 
-Not ported yet: tensor parallelism.
+The plain attention arms read only a static window of the cache, a
+multiple of 8192 covering its fill (``plan_chunks``' ``bucket``; the
+decode loops' ``_attn_bucket(final_len + max_new_tokens)``), as the JAX
+engine does. Not ported yet: tensor parallelism.
 """
 from __future__ import annotations
 
@@ -517,10 +520,12 @@ def plan_chunks(
     prompt_guided: bool = False,
 ) -> tuple:
     """Host plan: (steps, final cache length, max write extent). Each step
-    is a dict with kind, offset, valid, chunk_len, keep, cache_len and
-    prompt_len. ``prompt_guided``: every video chunk also carries the last
-    text segment (the question), ``prompt_len`` rows after its valid video
-    rows, and keeps ``int(ratio * (valid + prompt_len))`` entries."""
+    is a dict with kind, offset, valid, chunk_len, keep, cache_len,
+    prompt_len and bucket, the attention window covering the cache after
+    the step (``_attn_bucket`` of cache_len + keep). ``prompt_guided``:
+    every video chunk also carries the last text segment (the question),
+    ``prompt_len`` rows after its valid video rows, and keeps
+    ``int(ratio * (valid + prompt_len))`` entries."""
     s = len(ids)
     if chunk_tokens is None:
         segments = [(0, s, "text")]
@@ -540,7 +545,8 @@ def plan_chunks(
         if kind == "text":
             padded = max(TEXT_BUCKET, math.ceil(n / TEXT_BUCKET) * TEXT_BUCKET)
             plan.append(dict(kind="text", offset=seg_s, valid=n, chunk_len=padded,
-                             keep=n, cache_len=cache_len, prompt_len=0))
+                             keep=n, cache_len=cache_len, prompt_len=0,
+                             bucket=_attn_bucket(cache_len + n)))
             max_extent = max(max_extent, cache_len + padded)
             cache_len += n
             continue
@@ -550,7 +556,8 @@ def plan_chunks(
             q_len = valid + p_len
             keep = max(1, int(ratio * q_len)) if compress_video else q_len
             plan.append(dict(kind="video", offset=ss, valid=valid, chunk_len=chunk_tokens,
-                             keep=keep, cache_len=cache_len, prompt_len=p_len))
+                             keep=keep, cache_len=cache_len, prompt_len=p_len,
+                             bucket=_attn_bucket(cache_len + keep)))
             max_extent = max(max_extent, cache_len + chunk_tokens + p_len)
             cache_len += keep
     return plan, cache_len, max_extent
@@ -588,6 +595,7 @@ def _spec_decode_loop(
     draft: int,
     reforge: bool,
     attn_impl: str,
+    attn_budget: int,
 ) -> tuple:
     """Prompt-lookup speculative decode, greedy (reference
     ``_spec_decode_loop``, engine.py:347-445), as a host loop over device
@@ -627,7 +635,7 @@ def _spec_decode_loop(
             np.broadcast_to(pos_base + m + idx_k1, (3, k1)).astype(np.int32)).to(dev)
         hidden, kv = text.decoder_chunk(
             model, cfg, kv, text.embed(model, chunk), pos3, k1_dev, no_keypatch, k1_dev,
-            compress=False, reforge=reforge, attn_impl=attn_impl,
+            compress=False, reforge=reforge, attn_impl=attn_impl, attn_budget=attn_budget,
         )
         nxt = torch.argmax(text.final_logits_batch(model, cfg, hidden), dim=-1).cpu().numpy()
         a_acc = int(np.cumprod(prop == nxt[:draft]).sum())
@@ -815,6 +823,7 @@ def prefill_and_decode(
                 model, cfg, kv, x, p3, lens_dev[i, 0], kp, lens_dev[i, 1],
                 compress=step["kind"] == "video" and compress_video,
                 reforge=reforge, attn_impl=attn_impl, act_quant=act_quant,
+                attn_budget=min(step["bucket"], budget),
             )
             if on_dispatch is not None:
                 on_dispatch()
@@ -870,6 +879,7 @@ def prefill_and_decode(
                 tokens, n_emit, n_steps = _spec_decode_loop(
                     model, cfg, kv, token_host, decode_pos_base, tail, max_new_tokens - 1,
                     int(rt.spec_ngram), spec_draft, reforge, attn_impl,
+                    min(_attn_bucket(final_len + max_new_tokens + spec_draft), budget),
                 )
                 tokens = tokens[: max_new_tokens - 1]
                 spec_steps = (n_emit, n_steps)
@@ -879,12 +889,13 @@ def prefill_and_decode(
                 one = lens_dev[-1, 0]
                 no_keypatch = torch.zeros(1, dtype=torch.bool, device=device)
                 pos_base = torch.full((3, 1), decode_pos_base, dtype=torch.int32, device=device)
+                window = min(_attn_bucket(final_len + max_new_tokens), budget)
                 steps = []
                 for i in range(max_new_tokens - 1):
                     hidden, kv = text.decoder_chunk(
                         model, cfg, kv, text.embed(model, token), pos_base + i,
                         one, no_keypatch, one, compress=False, reforge=reforge,
-                        attn_impl=attn_impl,
+                        attn_impl=attn_impl, attn_budget=window,
                     )
                     token = select_tokens(text.final_logits(model, cfg, hidden[0])[None],
                                           sampler, LOOP, [i])

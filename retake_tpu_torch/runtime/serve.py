@@ -181,7 +181,7 @@ class ContinuousServer:
         rt = engine.retake
         self.sampler = Sampler.from_config(rt, getattr(engine, "noise_fn", None))
         self.engine = engine
-        self.cfg = engine.cfg
+        self.cfg = getattr(engine.cfg, "text", engine.cfg)  # LLaVA: its text decoder
         self.vision_cache_slots = int(vision_cache_slots)
         self._vision_cache: Dict[str, object] = {}  # video_key -> VideoFeatures
         self.prefix_cache_slots = int(prefix_cache_slots)

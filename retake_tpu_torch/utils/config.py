@@ -1,10 +1,11 @@
 """ReTaKe experiment configuration, jax-free copy.
 
-Copy of ``RetakeConfig`` / ``from_dict`` / ``compression_ratio_for`` from
-``retake_tpu/utils/config.py`` (same fields, defaults and parsing rules) so
-the port runs without the JAX package; YAML loading is left out because the
-port's entry points take dicts. ``tests/test_torch_config.py`` checks that
-both parse the same dicts to equal fields.
+Copy of ``RetakeConfig`` / ``from_dict`` / ``from_yaml`` /
+``compression_ratio_for`` from ``retake_tpu/utils/config.py`` (same fields,
+defaults and parsing rules) so the port runs without the JAX package.
+``tests/test_torch_config.py`` checks that both parse the same dicts and
+every file under ``configs/`` to equal fields. PyYAML is imported only by
+``from_yaml``.
 """
 
 from __future__ import annotations
@@ -139,6 +140,13 @@ class RetakeConfig:
             extras=extras,
             **kwargs,
         )
+
+    @staticmethod
+    def from_yaml(path: str) -> "RetakeConfig":
+        import yaml
+
+        with open(path) as f:
+            return RetakeConfig.from_dict(yaml.safe_load(f))
 
     def compression_ratio_for(self, input_length: int) -> float:
         """Effective KV compression ratio for a request (reference dynamic

@@ -5,6 +5,7 @@ run on a host without CUDA.
 """
 
 import dataclasses
+import glob
 import os
 import subprocess
 import sys
@@ -14,9 +15,11 @@ import pytest
 import torch
 import yaml
 
+from retake_tpu.models.llava_onevision import config as jlconfig
 from retake_tpu.models.qwen2_vl import config as jconfig
 from retake_tpu.utils import positions as jpos
 from retake_tpu.utils.config import RetakeConfig as JaxRetakeConfig
+from retake_tpu_torch.models.llava_onevision import config as tlconfig
 from retake_tpu_torch.models.qwen2_vl import config as tconfig
 from retake_tpu_torch.utils import positions as tpos
 from retake_tpu_torch.utils.config import RetakeConfig
@@ -33,10 +36,13 @@ def _fields(cls):
 @pytest.mark.parametrize("pair", [
     (jconfig.Qwen2VLConfig, tconfig.Qwen2VLConfig),
     (jconfig.Qwen2VisionConfig, tconfig.Qwen2VisionConfig),
+    (jlconfig.LlavaOnevisionConfig, tlconfig.LlavaOnevisionConfig),
+    (jlconfig.SiglipVisionConfig, tlconfig.SiglipVisionConfig),
 ])
 def test_model_config_copies_have_the_same_fields(pair):
     j, t = pair
     assert _fields(j) == _fields(t)
+    assert dataclasses.asdict(j()) == dataclasses.asdict(t())
     assert dataclasses.asdict(port_cfg(jconfig.TINY_TEST_CONFIG)) == dataclasses.asdict(
         jconfig.TINY_TEST_CONFIG
     )
@@ -85,6 +91,47 @@ def test_retake_config_copy_parses_like_the_original(i):
         ).compression_ratio_for(n)
 
 
+YAMLS = sorted(glob.glob(os.path.join(REPO, "configs", "**", "*.yaml"), recursive=True))
+
+
+def test_every_config_file_is_covered():
+    assert len(YAMLS) == 15
+
+
+@pytest.mark.parametrize("path", YAMLS, ids=lambda p: os.path.relpath(p, REPO))
+def test_from_yaml_parses_every_config_like_the_original(path):
+    assert dataclasses.asdict(RetakeConfig.from_yaml(path)) == dataclasses.asdict(
+        JaxRetakeConfig.from_yaml(path))
+
+
+HF_DICTS = [
+    {},
+    {"vocab_size": 151936, "hidden_size": 1536, "num_attention_heads": 12,
+     "num_key_value_heads": 2, "tie_word_embeddings": True,
+     "rope_scaling": {"type": "mrope", "mrope_section": [16, 24, 24]},
+     "vision_config": {"depth": 32, "embed_dim": 1280, "hidden_size": 1536, "num_heads": 16}},
+    {"rope_scaling": {"rope_type": "yarn", "factor": 4.0, "beta_fast": 16.0,
+                      "mrope_section": [4, 2, 2]},
+     "vision_config": {"hidden_size": 1280, "out_hidden_size": 3584, "in_chans": 3}},
+]
+
+
+@pytest.mark.parametrize("i", range(len(HF_DICTS)))
+def test_hf_config_parsing_copies_the_original(i):
+    """``from_hf_dict`` of HF config.json dicts (Qwen2-VL and LLaVA) and
+    ``rope_params`` give the original's fields and tables."""
+    d = HF_DICTS[i]
+    got, want = tconfig.Qwen2VLConfig.from_hf_dict(d), jconfig.Qwen2VLConfig.from_hf_dict(d)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    (gf, gs), (wf, ws) = got.rope_params(), want.rope_params()
+    np.testing.assert_array_equal(gf, wf)
+    assert gs == ws
+    ld = {"text_config": {**d, "num_hidden_layers": 4}, "vision_config": {"hidden_size": 64},
+          "image_token_index": 5, "image_grid_pinpoints": [[384, 768]]}
+    assert dataclasses.asdict(tlconfig.LlavaOnevisionConfig.from_hf_dict(ld)) == dataclasses.asdict(
+        jlconfig.LlavaOnevisionConfig.from_hf_dict(ld))
+
+
 @pytest.mark.parametrize("bad", [{"quantization": "fp4"}, {"kv_cache_dtype": "fp8"},
                                  {"spec_decode": True, "do_sample": True}])
 def test_retake_config_copy_rejects_like_the_original(bad):
@@ -120,6 +167,11 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import retake_tpu_torch.ops.cuda.vit_attention, retake_tpu_torch.utils.profiling\n"
         "import retake_tpu_torch.ops.cuda.decode_gapped, retake_tpu_torch.runtime.serve\n"
         "import retake_tpu_torch.tools.k4_timing, retake_tpu_torch.tools.flash_timing\n"
+        "import retake_tpu_torch.runtime.llava_engine, retake_tpu_torch.demo\n"
+        "import retake_tpu_torch.models.llava_onevision.params\n"
+        "import retake_tpu_torch.models.llava_onevision.anyres\n"
+        "import retake_tpu_torch.utils.checkpoint, retake_tpu_torch.data.processor\n"
+        "import retake_tpu_torch.runtime.http_server, retake_tpu_torch.tools.k2_timing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'retake_tpu' or m.startswith('retake_tpu.')]\n"
         "assert not bad, bad\n"

@@ -109,17 +109,61 @@ def test_flash_prefill_kernel_matches_plain_at_path_shapes(cuda, s, budget, cach
     assert err <= _bf16_tol(want), (err, _bf16_tol(want))
 
 
+# K1 at the LLaVA-Video-7B prefill (28/4 heads): a 32-frame chunk of 32 x 196
+# = 6272 rows over the 40960-key budget at the fill levels of a 256-frame
+# request, and the one-row last chunk the newline token makes
+# (cache_len, valid_len). The plain twin runs one KV head at a time over the
+# bucket that covers cache_len (the same function: K1 reads no key past
+# cache_len), since its whole [28, 6272, 47232] fp32 logits would be 33 GB
+K1_LLAVA_CASES = [(0, 6272), (20000, 6272), (34951, 6272), (39944, 1)]
+
+
+def k1_plain_per_kv_head(q, kc, vc, cl, kn, vn, vl, cache_len):
+    """K1's plain twin, one KV head (its G query heads) at a time, over the
+    8192-multiple window that covers ``cache_len``."""
+    kv = kc.shape[0]
+    g = q.shape[0] // kv
+    w = min(kc.shape[1], max(8192, -(-cache_len // 8192) * 8192))
+    return torch.cat([
+        flash_prefill.flash_prefill_attention_plain(
+            q[i * g : (i + 1) * g], kc[i : i + 1, :w], vc[i : i + 1, :w], cl, kn[i : i + 1],
+            vn[i : i + 1], vl)
+        for i in range(kv)
+    ])
+
+
+@pytest.mark.parametrize("cache_len,valid_len", K1_LLAVA_CASES)
+def test_flash_prefill_kernel_matches_plain_at_llava_shapes(cuda, cache_len, valid_len):
+    # the same tolerance as test_flash_prefill_kernel_matches_plain
+    rng = np.random.default_rng(cache_len + valid_len)
+    kv, g, s, d, budget = 4, 7, 6272, 128, 40960
+    q = _bf16(rng, (kv * g, s, d), cuda)
+    kc, vc = _bf16(rng, (kv, budget, d), cuda), _bf16(rng, (kv, budget, d), cuda)
+    kn, vn = _bf16(rng, (kv, s, d), cuda), _bf16(rng, (kv, s, d), cuda)
+    cl, vl = _i32(cache_len, cuda), _i32(valid_len, cuda)
+    got = flash_prefill.flash_prefill_attention(q, kc, vc, cl, kn, vn, vl)
+    again = flash_prefill.flash_prefill_attention(q, kc, vc, cl, kn, vn, vl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = k1_plain_per_kv_head(q, kc, vc, cl, kn, vn, vl, cache_len)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _bf16_tol(want), (err, _bf16_tol(want))
+
+
 # K2 cases (KV, G, S, valid_len, D): 2B (12/2) and 7B (28/4) heads at the
 # main path's S = 2304, full and short; D = 64; G = 1 and G = 16 (two heads
 # per CTA of an 8-CTA cluster); S below one 64-row tile (40); S no multiple
 # of 64 or 128 (300) with valid_len 257; valid_len = 1; the prompt-guided
-# block (2304 + 49 rows, full and as a short last chunk of 1999 + 49)
+# block (2304 + 49 rows, full and as a short last chunk of 1999 + 49); the
+# LLaVA-Video-7B chunk (28/4 heads, 6272 rows: full, short, and the one-row
+# chunk of the newline token)
 K2_CASES = [(2, 6, 2304, 2304, 128), (2, 6, 2304, 1999, 128), (4, 7, 2304, 2304, 128),
             (4, 7, 2304, 1999, 128), (2, 6, 300, 257, 64), (2, 6, 2304, 1999, 64),
             (3, 1, 300, 257, 128), (2, 16, 300, 257, 128), (1, 16, 2304, 1999, 64),
             (2, 6, 40, 40, 128), (2, 6, 40, 17, 64), (2, 6, 300, 257, 128),
             (2, 6, 256, 256, 128), (2, 6, 300, 1, 128), (4, 7, 40, 1, 64),
-            (2, 6, 2353, 2353, 128), (2, 6, 2353, 2048, 128), (4, 7, 2353, 2048, 128)]
+            (2, 6, 2353, 2353, 128), (2, 6, 2353, 2048, 128), (4, 7, 2353, 2048, 128),
+            (4, 7, 6272, 6272, 128), (4, 7, 6272, 5000, 128), (4, 7, 6272, 1, 128)]
 
 
 @pytest.mark.parametrize("kv,g,s,valid_len,d", K2_CASES)
