@@ -29,7 +29,9 @@ Phases (each prints; any failure raises and exits non-zero):
      phases 12-16, K1 at phase
      17's recapture text step,
      K1 and K2 at phase 22's
-     LLaVA-Video-7B chunk
+     LLaVA-Video-7B chunk,
+     K1-int8 at 2B heads
+     (phase 23's shape)
   4. end to end, with kernel      10. 7B W8A8 + int8-KV request: launch
      launch counts                    counts, bit-exact repeat (cache and
   5. the same request again,          scales), kernel vs plain path
@@ -80,6 +82,17 @@ Phases (each prints; any failure raises and exits non-zero):
      K3; SigLIP's time; at 64 frames the kernel path against the plain arm
      and the published "flash" arm, two ``prefix=`` questions bit-exact, a
      3-request ``generate_batch`` (K4), W8A8 against bf16
+ 23. the eval runner (``retake_tpu_torch.eval.infer_eval``) on 2B under
+     configs/qwen2_vl/retake_qwen2-vl_videomme_tpu_serving.yaml (W8A8, int8
+     KV, eval_batch_size 4) over a synthetic Video-MME benchmark (4 videos of
+     512 JPEG frames, 8 questions): the quantizer tool (``--vit``) over phase
+     21's checkpoint, bit-identical to quantizing the loaded tree; one
+     process in-process (K1-int8, K2, K3 in every sample, no K4; journal and
+     the three files); a resume that runs nothing; the CLI as two processes
+     joined by torch.distributed (gloo) on the card over 2 of the videos;
+     reuse of each video's features and prefix, token-exact against the
+     one-process run; the host pipeline (frame decode, patchify) at 2048
+     frames
 
 The last two stdout lines are the kernels record and
 ``{"ok": true, "device": {...}}``; before them, the card's name and power
@@ -239,6 +252,21 @@ LLAVA_K1_TIMED = 20000
 # near-equal column sums swap between the kernel and plain roundings)
 LLAVA_REL_LOGIT_TOL = 0.02
 LLAVA_MIN_KEPT = E2E_MIN_KEPT_AGREEMENT
+# phase 23: the eval runner under the published serving config (W8A8, int8
+# KV, eval_batch_size 4) on 2B. A synthetic Video-MME benchmark of
+# EVAL_VIDEOS frame directories of EVAL_FRAMES 448x252 JPEGs, sampled whole
+# (the config's 4 fps over --video_frame_extraction_fps 4), EVAL_QUESTIONS
+# questions each. 512 frames are 36864 video tokens, above the config's
+# max_input_length of 32000, so PivotKV (K2) evicts in every video chunk (at
+# 256 frames it would not run). The host pipeline is timed on the videos'
+# frames in one directory (symlinks). Reuse against inline: the same samples
+# in the same batches, and generate(prefix=) is token-exact (or raises
+# PrefixMismatch), so every sample's tokens must be equal. The CLI's two
+# processes share the card and take the first two videos (4 samples)
+SERVING_YAML = "configs/qwen2_vl/retake_qwen2-vl_videomme_tpu_serving.yaml"
+EVAL_VIDEOS, EVAL_FRAMES, EVAL_QUESTIONS, EVAL_WORKERS = 4, 512, 2, 2
+MULTI_VIDEOS = 2
+HOST_FRAMES = EVAL_VIDEOS * EVAL_FRAMES
 # reference points of earlier runs on an NVIDIA H100 80GB HBM3 at 700 W
 # (PERF.md): phase 19's "flash" TTFT at 512 frames before the attention
 # window and the "pallas" warm decode of 15 tokens
@@ -581,7 +609,7 @@ def phase_kernels_int8(dev, records):
     # heads (12 q / 2 kv)
     k1 = flash_prefill.flash_prefill_attention
     s, d, budget = 2304, 128, 40960
-    worst, ms = 0.0, {}
+    worst, ms, err_by_kv = 0.0, {}, {}
     for kv, g in ((4, 7), (2, 6)):
         q = bf16(gen, (kv * g, s, d), dev)
         (kc, kcs), (vc, vcs) = int8((kv, budget, d)), int8((kv, budget, d))
@@ -596,6 +624,7 @@ def phase_kernels_int8(dev, records):
                 check(torch.equal(got, again), "K1-int8 not bitwise repeatable")
                 err, tol = max_err(got, want), bf16_tol(want)
                 worst = max(worst, err)
+                err_by_kv[kv] = max(err_by_kv.get(kv, 0.0), err)
                 log(f"K1-int8 heads {kv * g}/{kv} cache_len={cache_len} valid_len={valid_len}: "
                     f"max|out| {want.float().abs().max().item():.3e} max_abs_err {err:.3e} "
                     f"(tol {tol:.3e})")
@@ -610,11 +639,11 @@ def phase_kernels_int8(dev, records):
             log(f"K1-int8 heads {kv * g}/{kv} fill {cache_len}: kernel {t_k:.3f} ms = "
                 f"{flops / t_k / 1e9:.1f} TFLOP/s ({100 * bound(flops, nbytes)[0] / t_k:.1f}% "
                 f"of bound)")
-        if kv == 4:
-            args = (q, kc, vc, i32(20000), kn, vn, i32(s), kcs, vcs, (kns, vns))
-            t_p = cuda_ms(lambda: flash_prefill.flash_prefill_attention_plain(*args), 3, 1)
-            log(f"K1-int8 heads 28/4 cache_len=20000: kernel {ms[(4, 20000)][0]:.3f} ms "
-                f"plain {t_p:.3f} ms")
+        args = (q, kc, vc, i32(20000), kn, vn, i32(s), kcs, vcs, (kns, vns))
+        t_p = cuda_ms(lambda: flash_prefill.flash_prefill_attention_plain(*args), 3, 1)
+        ms[(kv, "plain")] = t_p
+        log(f"K1-int8 heads {kv * g}/{kv} cache_len=20000: kernel {ms[(kv, 20000)][0]:.3f} ms "
+            f"plain {t_p:.3f} ms")
         del q, kc, vc, kn, vn
         torch.cuda.empty_cache()
     t_k, flops, nbytes = ms[(4, 20000)]
@@ -623,8 +652,14 @@ def phase_kernels_int8(dev, records):
         name="flash_prefill_attention_int8", route="cuda",
         source="retake_tpu_torch/csrc/flash_prefill.cu",
         replaces="retake_tpu/ops/pallas/flash_prefill.py:182",
-        max_abs_err=worst, ms=t_k, plain_ms=t_p,
+        max_abs_err=worst, ms=t_k, plain_ms=ms[(4, "plain")],
     ), flops, nbytes)
+    # 2B heads: the shape of phase 23's eval under the serving config
+    t_k, flops, nbytes = ms[(2, 20000)]
+    b, by = bound(flops, nbytes)
+    records["K1-int8"]["new_shapes"] = [dict(
+        path="23 eval (2B heads 12/2)", s=s, cache_len=20000, max_abs_err=err_by_kv[2],
+        ms=t_k, plain_ms=ms[(2, "plain")], bound_ms=b, bound_by=by, library_ms=None)]
 
     # K4-int8 at the 7B serving shape: 4 slots, 4 KV heads, G=7, the
     # 43008-column bucket, mixed live columns; the second case has an
@@ -1573,17 +1608,6 @@ class ByteTokenizer:
         return bytes(int(i) - 1000 for i in ids if 1000 <= int(i) < 1256).decode("utf-8", "replace")
 
 
-def write_frames(root: str, n: int, seed: int) -> None:
-    """``n`` 448x252 JPEG frames (%06d.jpg) of a drifting random texture."""
-    from PIL import Image
-
-    rng = np.random.default_rng(seed)
-    base = rng.integers(0, 255, size=(63, 112, 3), dtype=np.uint8).repeat(4, 0).repeat(4, 1)
-    for i in range(n):
-        Image.fromarray(np.roll(base, 3 * i, axis=1)).save(os.path.join(root, f"{i:06d}.jpg"),
-                                                            quality=90)
-
-
 def phase_http(cfg, model, dev, seed: int) -> dict:
     """``RetakeHTTPServer`` on 127.0.0.1 (port 0) over the 2B engine with both
     caches: /healthz; a question about a 64-frame JPEG directory (a miss:
@@ -1597,6 +1621,7 @@ def phase_http(cfg, model, dev, seed: int) -> dict:
     import urllib.request
 
     from retake_tpu_torch.data.processor import Qwen2VLProcessor
+    from retake_tpu_torch.eval.synthetic import write_frames
     from retake_tpu_torch.runtime import http_server
     from retake_tpu_torch.runtime.engine import Qwen2VLEngine
 
@@ -1635,7 +1660,7 @@ def phase_http(cfg, model, dev, seed: int) -> dict:
             return json.loads(r.read())
 
     with tempfile.TemporaryDirectory(prefix="retake_frames_") as frames:
-        write_frames(frames, HTTP_FRAMES, seed + 70)
+        write_frames(frames, HTTP_FRAMES, 448, 252, seed + 70, block=4)
         body = {"question": "What happens in the video? Answer with the option's letter.",
                 "video_path": frames, "extraction_fps": rt.sample_fps}
         srv.start()
@@ -1971,11 +1996,12 @@ def tree_leaves(tree: dict, prefix: str = "") -> dict:
     return out
 
 
-def phase_loading(cfg, model, dev, seed: int) -> dict:
+def phase_loading(cfg, model, dev, seed: int, hf_dir: str) -> dict:
     """2B at full width and depth, from disk: ``RetakeConfig.from_yaml`` of
     every file under configs/; the seed's random tree written under HF
     names as two safetensors shards with ``model.safetensors.index.json``
-    and read back by ``load_safetensors(..., device="cuda")``, every leaf
+    into ``hf_dir`` (phase 23 reads them again) and read back by
+    ``load_safetensors(..., device="cuda")``, every leaf
     bit-identical (load seconds, peak memory); a weight-only int8 tree
     through ``save_params`` -> ``load_checked``, a 64-frame request from
     each tree with the same tokens and first logits; the port demo's
@@ -2002,27 +2028,27 @@ def phase_loading(cfg, model, dev, seed: int) -> dict:
 
     params = params_lib.init_params(cfg, seed=seed, device=dev)
     check(torch.equal(params["layers"]["q"]["w"], model.layers.q.w), "the phase-4 weights")
+    hf = hf_tensors_of(cfg, params)
+    names = sorted(hf)
+    halves = [names[: len(names) // 2], names[len(names) // 2 :]]
+    weight_map = {}
+    t0 = time.perf_counter()
+    for i, part in enumerate(halves):
+        shard = f"model-{i + 1:05d}-of-00002.safetensors"
+        safetensors_io.save_file({n: hf[n] for n in part}, os.path.join(hf_dir, shard))
+        weight_map.update({n: shard for n in part})
+    with open(os.path.join(hf_dir, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {}, "weight_map": weight_map}, f)
+    del hf
+    gb = sum(os.path.getsize(os.path.join(hf_dir, f)) for f in os.listdir(hf_dir)) / 1e9
+    log(f"[21] wrote the random 2B tree as 2 HF shards ({gb:.2f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
-        hf = hf_tensors_of(cfg, params)
-        names = sorted(hf)
-        halves = [names[: len(names) // 2], names[len(names) // 2 :]]
-        weight_map = {}
-        t0 = time.perf_counter()
-        for i, part in enumerate(halves):
-            shard = f"model-{i + 1:05d}-of-00002.safetensors"
-            safetensors_io.save_file({n: hf[n] for n in part}, os.path.join(tmp, shard))
-            weight_map.update({n: shard for n in part})
-        with open(os.path.join(tmp, "model.safetensors.index.json"), "w") as f:
-            json.dump({"metadata": {}, "weight_map": weight_map}, f)
-        del hf
-        gb = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp)) / 1e9
-        log(f"[21] wrote the random 2B tree as 2 HF shards ({gb:.2f} GB) in "
-            f"{time.perf_counter() - t0:.1f} s")
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        loaded = params_lib.load_safetensors(tmp, cfg, device=dev)
+        loaded = params_lib.load_safetensors(hf_dir, cfg, device=dev)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() - base
@@ -2275,6 +2301,278 @@ def phase_llava(dev, args) -> dict:
     return paths
 
 
+# ---------- phase 23: the eval runner, the quantizer, the host pipeline
+
+
+def hf_config_of(cfg) -> dict:
+    """A ``config.json`` that ``Qwen2VLConfig.from_pretrained`` reads back as
+    ``cfg``."""
+    v = cfg.vision
+    return {
+        "model_type": "qwen2_vl", "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_hidden_layers,
+        "num_attention_heads": cfg.num_attention_heads,
+        "num_key_value_heads": cfg.num_key_value_heads, "rms_norm_eps": cfg.rms_norm_eps,
+        "rope_theta": cfg.rope_theta, "max_position_embeddings": cfg.max_position_embeddings,
+        "tie_word_embeddings": cfg.tie_word_embeddings,
+        "rope_scaling": {"type": "mrope", "mrope_section": list(cfg.mrope_section)},
+        "bos_token_id": cfg.bos_token_id, "eos_token_id": cfg.eos_token_id,
+        "vision_start_token_id": cfg.vision_start_token_id,
+        "vision_end_token_id": cfg.vision_end_token_id, "image_token_id": cfg.image_token_id,
+        "video_token_id": cfg.video_token_id,
+        "vision_config": {"depth": v.depth, "embed_dim": v.embed_dim,
+                          "hidden_size": v.hidden_size, "mlp_ratio": v.mlp_ratio,
+                          "num_heads": v.num_heads, "in_channels": v.in_channels,
+                          "patch_size": v.patch_size, "spatial_merge_size": v.spatial_merge_size,
+                          "temporal_patch_size": v.temporal_patch_size},
+    }
+
+
+def eval_yaml(root: str, tmp: str, out_dir: str, anno_file: str, **extra) -> str:
+    """A copy of the serving config with only anno_file, output_dir and
+    dataloader_num_workers rewritten (and ``extra``)."""
+    import yaml
+
+    with open(os.path.join(root, SERVING_YAML)) as f:
+        d = yaml.safe_load(f)
+    d.update(anno_file=anno_file, output_dir=out_dir, dataloader_num_workers=EVAL_WORKERS,
+             **extra)
+    path = os.path.join(tmp, os.path.basename(out_dir) + ".yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f)
+    return path
+
+
+def journal(out_dir: str, rank: int = 0) -> list:
+    with open(os.path.join(out_dir, f"shard_{rank:03d}.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_eval_in_process(engine, processor, dataset, rt) -> tuple:
+    """The runner's one-process run (``run_eval`` + ``merge_and_score``):
+    (launches, seconds, stdout, tokens by idx, new journal records)."""
+    import contextlib
+    import io
+
+    from retake_tpu_torch.eval import infer_eval
+
+    seen = []
+    decode = processor.decode
+    processor.decode = lambda ids, **kw: (seen.append(np.asarray(ids)), decode(ids, **kw))[1]
+    out_dir = rt.output_dir
+    before = len(journal(out_dir)) if os.path.exists(os.path.join(out_dir, "shard_000.jsonl")) \
+        else 0
+    out = io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        infer_eval.run_eval(engine, processor, dataset, rt, 0, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        infer_eval.merge_and_score(rt, 1)
+    n = read_counts()
+    processor.decode = decode
+    recs = journal(out_dir)[before:]
+    tokens = {rec["idx"]: toks for rec, toks in zip(recs, seen)}
+    return n, wall, out.getvalue(), tokens, recs
+
+
+def host_pipeline(host_dir: str) -> None:
+    """``load_frame_dir`` and ``preprocess_video`` at HOST_FRAMES 448x252
+    frames (PIL decode, the numpy normalize + patchify): the host work of an
+    eval sample or an HTTP miss."""
+    from retake_tpu_torch.data import processor as proc_lib
+    from retake_tpu_torch.data import video
+
+    t0 = time.perf_counter()
+    frames = video.load_frame_dir(host_dir, 2048, 4, 4, 448)
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat, grid = proc_lib.preprocess_video(frames)
+    t_prep = time.perf_counter() - t0
+    h, w = frames[0].shape[:2]
+    log(f"[23] host pipeline, {len(frames)} frames {w}x{h} on {os.cpu_count()} cores: "
+        f"load_frame_dir (PIL) {t_load:.2f} s, preprocess_video (PIL bicubic + numpy) "
+        f"{t_prep:.2f} s -> patches {tuple(flat.shape)} grid {grid}; the native pipeline is "
+        "not built on this machine (no libjpeg headers)")
+    check(len(frames) == HOST_FRAMES and grid == (HOST_FRAMES // 2, h // 14, w // 14),
+          ("host pipeline", len(frames), grid))
+
+
+def phase_eval(cfg, dev, seed: int, hf_dir: str) -> dict:
+    """The eval runner on the card under the serving config (2B, full width
+    and depth, random seed weights): the quantizer over phase 21's HF
+    checkpoint (leaves bit-identical to quantizing the loaded tree here);
+    ``run_eval`` + ``merge_and_score`` in this process through
+    ``_load_engine``'s pre-quantized branch (K1-int8, K2 and K3 in every
+    sample, no K4; every index journaled once; the three files); a resume
+    that runs nothing; the CLI as two processes joined by torch.distributed
+    on this card over MULTI_VIDEOS videos (rank 0 merges every index once);
+    reuse of each video's features and prefix (every question reused, every
+    sample's tokens equal to the inline run's); the host pipeline at
+    HOST_FRAMES frames. Returns the in-process run's launches."""
+    from retake_tpu_torch.data.datasets import get_dataset
+    from retake_tpu_torch.data.processor import Qwen2VLProcessor
+    from retake_tpu_torch.eval import infer_eval
+    from retake_tpu_torch.eval.synthetic import free_port, save_offline_tokenizer, write_videomme
+    from retake_tpu_torch.models.qwen2_vl import params as params_lib
+    from retake_tpu_torch.models.qwen2_vl.config import Qwen2VLConfig
+    from retake_tpu_torch.ops.quantization import quantize_llm_int8, quantize_vit_int8
+    from retake_tpu_torch.runtime.engine import Qwen2VLEngine
+    from retake_tpu_torch.utils import checkpoint
+    from retake_tpu_torch.utils.config import RetakeConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    n_samples = EVAL_VIDEOS * EVAL_QUESTIONS
+    with open(os.path.join(hf_dir, "config.json"), "w") as f:
+        json.dump(hf_config_of(cfg), f)
+    check(Qwen2VLConfig.from_pretrained(hf_dir) == cfg, "config.json of the 2B geometry")
+    save_offline_tokenizer(hf_dir)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        anno_file = write_videomme(tmp, [EVAL_QUESTIONS] * EVAL_VIDEOS, EVAL_FRAMES, 448, 252,
+                                   seed + 23, block=4)
+        host_dir = os.path.join(tmp, "frames")
+        os.makedirs(host_dir)
+        for v in range(EVAL_VIDEOS):
+            for i in range(EVAL_FRAMES):
+                os.symlink(os.path.join(tmp, f"vid{v}", f"{i:06d}.jpg"),
+                           os.path.join(host_dir, f"{v * EVAL_FRAMES + i:06d}.jpg"))
+        log(f"[23] wrote {HOST_FRAMES} JPEG frames (448x252) and a {n_samples}-sample "
+            f"Video-MME benchmark ({EVAL_VIDEOS} videos x {EVAL_FRAMES} frames) in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # the quantizer, as a user runs it, over phase 21's checkpoint
+        qdir = os.path.join(tmp, "int8")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "retake_tpu_torch.tools.quantize_checkpoint", "--hf_path",
+             hf_dir, "--out", qdir, "--vit"], cwd=root, capture_output=True, text=True,
+            timeout=600)
+        q_s = time.perf_counter() - t0
+        check(out.returncode == 0, ("quantize_checkpoint", out.stdout[-2000:], out.stderr[-4000:]))
+        files = json.loads(out.stdout.strip().splitlines()[-1])["files"]
+        peak = [line for line in out.stderr.splitlines() if "peak device memory" in line]
+        want = quantize_llm_int8(params_lib.load_safetensors(hf_dir, cfg, device=dev))
+        want["visual"] = quantize_vit_int8(want["visual"])
+        want, got = tree_leaves(want), tree_leaves(checkpoint.load_params(qdir, device=dev))
+        same = set(want) == set(got) and all(
+            got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]) for k in want)
+        gb = os.path.getsize(os.path.join(qdir, checkpoint.FILENAME)) / 1e9
+        hf_gb = sum(os.path.getsize(os.path.join(hf_dir, f)) for f in os.listdir(hf_dir)
+                    if f.endswith(".safetensors")) / 1e9
+        log(f"[23] quantize_checkpoint --vit: exit 0 in {q_s:.1f} s (a new process: start-up, "
+            f"{hf_gb:.2f} GB read, quantized on the card, {gb:.2f} GB written); "
+            f"{peak[-1].strip() if peak else 'no peak line'}; files {files}; {len(got)} leaves "
+            f"bit-identical to quantize_llm_int8 / quantize_vit_int8 of the loaded tree here: "
+            f"{same}")
+        check(same, "the quantizer's tree")
+        del want, got
+        torch.cuda.empty_cache()
+
+        # one process, in this process: _load_engine's pre-quantized branch
+        inline_dir = os.path.join(tmp, "inline")
+        rt = RetakeConfig.from_yaml(eval_yaml(root, tmp, inline_dir, anno_file))
+        t0 = time.perf_counter()
+        engine = infer_eval._load_engine(None, qdir, rt, dev)
+        processor = Qwen2VLProcessor.from_pretrained(qdir)
+        dataset = get_dataset(rt.dataset_name, rt.anno_file, processor_kwargs=dict(
+            video_fps=rt.sample_fps, video_maxlen=rt.max_num_frames,
+            image_resolution=rt.longsize_resolution, video_frame_extraction_fps=4))
+        log(f"[23] engine from the int8 tree in {time.perf_counter() - t0:.1f} s "
+            f"(quantization {rt.quantization}, kv_cache_dtype {rt.kv_cache_dtype}, "
+            f"eval_batch_size {rt.eval_batch_size}, attn {rt.attn_implementation}, "
+            f"max_new_tokens {rt.max_new_tokens})")
+        n, wall, _, inline_tokens, recs = run_eval_in_process(engine, processor, dataset, rt)
+        idxs = sorted(rec["idx"] for rec in recs)
+        arts = [a for a in ("anno_id2result.json", "infer_results.csv", "eval_results.csv")
+                if os.path.exists(os.path.join(inline_dir, a))]
+        m = [rec["metrics"] for rec in recs]
+        log(f"[23] run_eval, one process: {n_samples} samples in {wall:.1f} s "
+            f"({wall / n_samples:.2f} s a sample); journal prefill_s "
+            f"{[x['prefill_s'] for x in m]}, decode_s {[x['decode_s'] for x in m]}, "
+            f"input_tokens {m[0]['input_tokens']}, cache_tokens {m[0]['cache_tokens']}, "
+            f"new_tokens {[x['new_tokens'] for x in m]}; launches {n} "
+            f"({ {k: v / n_samples for k, v in n.items()} } a sample); files {arts}")
+        check(idxs == list(range(n_samples)) and len(arts) == 3, (idxs, arts))
+        # a sample: K2 in every layer of every 32-frame chunk, K1-int8 in every
+        # layer of those and of the text steps, K3 in every block of every
+        # 128-step ViT chunk (t = frames / 2); no batched-decode kernel
+        chunks, vit_chunks = EVAL_FRAMES // 32, math.ceil(EVAL_FRAMES // 2 / 128)
+        check(n["K2"] == 28 * chunks * n_samples and n["K1-int8"] % 28 == 0
+              and n["K1-int8"] > n["K2"] and n["K3"] == 32 * vit_chunks * n_samples
+              and n["K4"] == n["K4-int8"] == n["K1"] == 0, ("eval launches", n))
+        launches = n
+
+        # resume: every index is journaled, so nothing runs
+        n, wall, _, _, recs = run_eval_in_process(engine, processor, dataset, rt)
+        log(f"[23] resume: {len(recs)} samples journaled, launches {n}, {wall:.2f} s")
+        check(not recs and not any(n.values()), ("resume ran work", n, len(recs)))
+
+        # reuse of each video's features and captured prefix
+        reuse_dir = os.path.join(tmp, "reuse")
+        rt_reuse = RetakeConfig.from_yaml(
+            eval_yaml(root, tmp, reuse_dir, anno_file, reuse_video_features=True))
+        engine = Qwen2VLEngine(Qwen2VLConfig.from_pretrained(qdir), engine.model, rt_reuse,
+                               device=dev)
+        n, wall, stdout, reuse_tokens, recs = run_eval_in_process(
+            engine, processor, dataset, rt_reuse)
+        summary = [line for line in stdout.splitlines() if "prefix reuse summary" in line]
+        same = [bool(np.array_equal(inline_tokens[i], reuse_tokens[i])) for i in range(n_samples)]
+        with open(os.path.join(inline_dir, "anno_id2result.json")) as f:
+            a_inline = json.load(f)
+        with open(os.path.join(reuse_dir, "anno_id2result.json")) as f:
+            a_reuse = json.load(f)
+        same_answers = sum(a_inline[k] == a_reuse[k] for k in a_inline) / n_samples
+        log(f"[23] reuse_video_features: {n_samples} samples in {wall:.1f} s; {summary}; "
+            f"launches {n}; tokens equal to the inline run's per sample {same}, answers "
+            f"equal {same_answers:.3f}")
+        check(summary and f"reused={n_samples}," in summary[0] and all(same)
+              and n["K3"] == 32 * vit_chunks * EVAL_VIDEOS, ("reuse", summary, same, n))
+        del engine, processor, dataset
+        torch.cuda.empty_cache()
+
+        # the CLI, two processes on this card, over the first MULTI_VIDEOS videos
+        multi_dir = os.path.join(tmp, "multi")
+        n_multi = MULTI_VIDEOS * EVAL_QUESTIONS
+        with open(anno_file) as f:
+            annos = json.load(f)[:n_multi]
+        multi_anno = os.path.join(tmp, "videomme_multi.json")
+        with open(multi_anno, "w") as f:
+            json.dump(annos, f)
+        cfg_path = eval_yaml(root, tmp, multi_dir, multi_anno)
+        coordinator = f"127.0.0.1:{free_port()}"
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "retake_tpu_torch.eval.infer_eval", "--hf_path", qdir,
+             "--config_path", cfg_path, "--video_frame_extraction_fps", "4", "--coordinator",
+             coordinator, "--num_processes", "2", "--process_id", str(k)],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for k in range(2)]
+        try:
+            outs = [pr.communicate(timeout=900)[0] for pr in procs]
+        finally:
+            for pr in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait()
+        wall = time.perf_counter() - t0
+        codes = [pr.returncode for pr in procs]
+        check(codes == [0, 0], ("two-process eval", codes, [o[-3000:] for o in outs]))
+        shards = [sorted(rec["idx"] for rec in journal(multi_dir, r)) for r in range(2)]
+        with open(os.path.join(multi_dir, "anno_id2result.json")) as f:
+            merged = json.load(f)
+        log(f"[23] two processes (--coordinator {coordinator}, gloo, both on {dev}): exit "
+            f"{codes} in {wall:.1f} s; shards {shards}; rank 0 merged {len(merged)} samples")
+        check(shards == [list(range(0, n_multi, 2)), list(range(1, n_multi, 2))]
+              and sorted(merged, key=int) == [str(i) for i in range(n_multi)],
+              ("two-process merge", shards, sorted(merged)))
+
+        host_pipeline(host_dir)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=512, help="raw video frames (2048 = bench)")
@@ -2379,13 +2677,19 @@ def main() -> int:
     log(f"[17-20] serving, flash, MA-LLM: {t_rest:.1f} s (" + ", ".join(
         f"{p}: {w:.1f} s" for p, w in zip(range(17, 21), each)) + ")")
 
-    # 21. weights, configs and the demo from disk (2B)
-    t21 = time.perf_counter()
-    paths["21 demo"] = phase_loading(cfg, model, dev, args.seed)
-    t21 = time.perf_counter() - t21
-    log(f"[21] loading and the demo: {t21:.1f} s")
-    del model
-    torch.cuda.empty_cache()
+    # 21. weights, configs and the demo from disk (2B); 23. the eval runner,
+    # the quantizer over the same HF checkpoint directory, the host pipeline
+    with tempfile.TemporaryDirectory() as hf_dir:
+        t21 = time.perf_counter()
+        paths["21 demo"] = phase_loading(cfg, model, dev, args.seed, hf_dir)
+        t21 = time.perf_counter() - t21
+        log(f"[21] loading and the demo: {t21:.1f} s")
+        del model
+        torch.cuda.empty_cache()
+        t23 = time.perf_counter()
+        paths["23 eval"] = phase_eval(cfg, dev, args.seed, hf_dir)
+        t23 = time.perf_counter() - t23
+        log(f"[23] eval, quantizer, host pipeline: {t23:.1f} s")
 
     # 10-11. 7B at full width and depth in the serving configuration: W8A8
     # linears and the int8 KV cache. init_params quantizes on the device,
@@ -2427,7 +2731,7 @@ def main() -> int:
         for key in ("K1", "K1-int8", "K2", "K3", "K4", "K4-int8")
     ]}
     log(f"[end] chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s (phases 12-16 "
-        f"{t_new:.1f} s, 17-20 {t_rest:.1f} s, 21 {t21:.1f} s, 22 {t22:.1f} s)")
+        f"{t_new:.1f} s, 17-20 {t_rest:.1f} s, 21 {t21:.1f} s, 22 {t22:.1f} s, 23 {t23:.1f} s)")
     log(smi)
     print(json.dumps(kernel_line))
     print(json.dumps({"ok": True, "device": {

@@ -24,12 +24,13 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import sys
 import time
 from typing import List, Optional
 
 import numpy as np
+
+from retake_tpu_torch.data.scorers import trim_answer
 
 DEMO_QUESTIONS = [
     "As depicted in the video, how is the relationship between the rabbit and"
@@ -45,21 +46,6 @@ DEMO_QUESTIONS = [
     " the given choices directly.",
 ]
 EXPECTED_ANSWERS = ["A", "B", "C"]
-
-
-def trim_answer(s: str) -> str:
-    """The multiple-choice letter of an answer (copy of
-    ``retake_tpu/data/scorers.trim_answer``)."""
-    s = s.strip()
-    for prefix in (
-        "The best answer is", "The correct answer is", "The answer is", "The answer",
-        "The best option is", "The correct option is", "Best answer:", "Best option:",
-    ):
-        s = s.replace(prefix, "")
-    if len(s.split()) > 10 and not re.search("[ABCDEFG]", s):
-        return ""
-    match = re.search(r"[ABCDEFG]", s)
-    return match[0] if match else ""
 
 
 class StubTokenizer:

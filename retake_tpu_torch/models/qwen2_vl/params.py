@@ -33,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from retake_tpu_torch import device as device_lib
 from retake_tpu_torch.models.qwen2_vl.config import Qwen2VLConfig
 from retake_tpu_torch.ops import quantization as q8
 from retake_tpu_torch.ops import rope
@@ -56,7 +57,7 @@ def init_params(
     cfg: Qwen2VLConfig,
     seed: int = 0,
     dtype: torch.dtype = torch.bfloat16,
-    device="cpu",
+    device="cuda",
     quantize_int8: bool = False,
     quantize_vit_int8: bool = False,
     vision: bool = True,
@@ -73,6 +74,7 @@ def init_params(
     (16.6 GB at 7B) never exists, one bf16 stack at a time does. The result
     equals ``quantize_llm_int8`` / ``quantize_vit_int8`` of the unquantized
     tree of the same seed, leaf for leaf."""
+    device = device_lib.resolve(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d, m, l = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers

@@ -1,1 +1,2 @@
-"""Measurement scripts of the port, run on a CUDA card."""
+"""Scripts of the port: kernel and arm timing (run on a CUDA card) and the
+checkpoint quantizer."""

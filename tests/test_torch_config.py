@@ -172,6 +172,9 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import retake_tpu_torch.models.llava_onevision.anyres\n"
         "import retake_tpu_torch.utils.checkpoint, retake_tpu_torch.data.processor\n"
         "import retake_tpu_torch.runtime.http_server, retake_tpu_torch.tools.k2_timing\n"
+        "import retake_tpu_torch.eval.infer_eval, retake_tpu_torch.tools.quantize_checkpoint\n"
+        "import retake_tpu_torch.eval.synthetic, retake_tpu_torch.data.datasets\n"
+        "import retake_tpu_torch.data.scorers\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'retake_tpu' or m.startswith('retake_tpu.')]\n"
         "assert not bad, bad\n"
@@ -193,3 +196,8 @@ def test_cuda_engine_raises_without_cuda():
         device.resolve("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         Qwen2VLEngine(tconfig.qwen2_vl_2b(), None, RetakeConfig(), device="cuda")
+    # random weights are drawn on the card unless the caller names the CPU
+    from retake_tpu_torch.models.qwen2_vl import params as tparams
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        tparams.init_params(tconfig.qwen2_vl_2b())

@@ -404,6 +404,33 @@ def test_flash_prefill_int8_kernel_matches_plain(cuda, s, cache_len, valid_len, 
     assert err <= _bf16_tol(want), (err, _bf16_tol(want))
 
 
+# K1-int8 at the shape of the eval under the serving config on 2B (chip_smoke
+# phase 3 / 23): 12 query / 2 KV heads, a 2304-row chunk (full, and a short
+# last one) over a 40960-key int8 cache (cache_len, valid_len)
+K1_INT8_2B_CASES = [(0, 2304), (20000, 2304), (20000, 1999), (36864 - 2304, 2304)]
+
+
+@pytest.mark.parametrize("cache_len,valid_len", K1_INT8_2B_CASES)
+def test_flash_prefill_int8_kernel_matches_plain_at_2b_eval_shapes(cuda, cache_len, valid_len):
+    # the tolerance of test_flash_prefill_int8_kernel_matches_plain
+    rng = np.random.default_rng(cache_len + valid_len + 12)
+    kv, g, s, d, budget = 2, 6, 2304, 128, 40960
+    q = _bf16(rng, (kv * g, s, d), cuda)
+    (kc, kcs), (vc, vcs) = _int8(rng, (kv, budget, d), cuda), _int8(rng, (kv, budget, d), cuda)
+    (kn, kns), (vn, vns) = _int8(rng, (kv, s, d), cuda), _int8(rng, (kv, s, d), cuda)
+    args = (q, kc, vc, _i32(cache_len, cuda), kn, vn, _i32(valid_len, cuda), kcs, vcs,
+            (kns, vns))
+    n0 = flash_prefill.flash_prefill_attention_int8.launches
+    got = flash_prefill.flash_prefill_attention(*args)
+    again = flash_prefill.flash_prefill_attention(*args)
+    torch.cuda.synchronize()
+    assert flash_prefill.flash_prefill_attention_int8.launches == n0 + 2
+    assert torch.equal(got, again)
+    want = flash_prefill.flash_prefill_attention_plain(*args)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _bf16_tol(want), (err, _bf16_tol(want))
+
+
 # int8 K4 cases (B, KV, G, S, final_len, dec_start, write_end, D): the 7B
 # serving shape (4 slots, 4 KV heads, G=7, the 43008-column bucket, mixed
 # live columns), an all-dead slot, and the edges of K4_CASES; S = 1001 and

@@ -183,9 +183,10 @@ def test_init_params_int8_is_the_quantized_init():
     seed, and the JAX int8 tree's keys, shapes and dtypes."""
     cfg = tiny_cfg()
     pcfg = port_cfg(cfg)
-    got = tparams.init_params(pcfg, seed=3, dtype=torch.float32, quantize_int8=True,
-                              quantize_vit_int8=True)
-    want = tq8.quantize_llm_int8(tparams.init_params(pcfg, seed=3, dtype=torch.float32))
+    got = tparams.init_params(pcfg, seed=3, dtype=torch.float32, device="cpu",
+                              quantize_int8=True, quantize_vit_int8=True)
+    want = tq8.quantize_llm_int8(tparams.init_params(pcfg, seed=3, dtype=torch.float32,
+                                                     device="cpu"))
     want["visual"] = tq8.quantize_vit_int8(want["visual"])
     got_l, want_l = _torch_leaves(got), _torch_leaves(want)
     assert set(got_l) == set(want_l)
