@@ -119,6 +119,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -267,6 +268,38 @@ SERVING_YAML = "configs/qwen2_vl/retake_qwen2-vl_videomme_tpu_serving.yaml"
 EVAL_VIDEOS, EVAL_FRAMES, EVAL_QUESTIONS, EVAL_WORKERS = 4, 512, 2, 2
 MULTI_VIDEOS = 2
 HOST_FRAMES = EVAL_VIDEOS * EVAL_FRAMES
+# phase 24: tensor parallelism over TP_SIZE ranks, processes spawned from
+# this script (gloo on one card, NCCL on a card each when the machine has
+# TP_SIZE), each rank on its half of the heads. The local shapes its
+# kernels run at, and the 2B's at tp = 2, are checked in phase 3:
+# (KV, G, S, int8 cache, path) for K1 / K1-int8 and K2 on the same q / k,
+# (KV, G, int8, path) for K4 / K4-int8
+TP_SIZE = 2
+TP_K1_CASES = [(2, 7, LLAVA_ROWS, False, "24 llava (LLaVA-Video-7B at tp = 2)"),
+               (1, 6, 2304, False, "2B at tp = 2"),
+               (2, 7, 2304, True, "24 request (7B serving config at tp = 2)")]
+TP_K4_CASES = [(2, 7, True, "24 server (7B serving config at tp = 2)"),
+               (1, 6, False, "2B at tp = 2"),
+               (2, 7, False, "24 llava generate_batch (LLaVA-Video-7B at tp = 2)")]
+# the TP server serves these of SERVE_REQUESTS (64, 64 and 128 frames
+# arriving at 0, 1 and 2 s): the 512-, 256- and first 128-frame requests are
+# cut for time (two ranks on one card pass every all-reduce through host
+# memory: four requests took 56-93 s on an NVIDIA H100 80GB HBM3 at 700 W,
+# PERF.md)
+TP_SERVE = (1, 4, 5)
+TP_LLAVA_FRAMES = 64
+TP_LLAVA_BATCH = (64, 64)  # generate_batch frames (seeds seed + 30 + i)
+# the served streams against phase 11's for the same requests: the token
+# agreement tools/gate_serve_decode_stage.py:135 requires of two decode paths
+TP_MIN_AGREEMENT = 0.7
+# (a)'s first logits against tp = 1 (phase 10): the W8A8 prefill under TP is
+# exact (global row absmax, int32 sums) and K2's head sums differ from
+# tp = 1 only in their order, so the ranks' first logits are those of one
+# card up to that rounding (rel 0.0000 to 4 decimals on an NVIDIA H100
+# 80GB HBM3 at 700 W, PERF.md); a broken collective moves them by O(1).
+# Tighter than phase 10's E2E7_REL_LOGIT_TOL, which bounds kernel vs plain.
+TP_REL_LOGIT_TOL = 1e-3
+TP_TIMEOUT_S = 600.0  # both ranks' wall, start-up included
 # reference points of earlier runs on an NVIDIA H100 80GB HBM3 at 700 W
 # (PERF.md): phase 19's "flash" TTFT at 512 frames before the attention
 # window and the "pallas" warm decode of 15 tokens
@@ -914,12 +947,14 @@ def phase_decode_step(cfg, model, rt, dev, seed: int, profile: bool) -> None:
     del k_all, v_all, states, engine
 
 
-def phase_request(cfg, model, rd: dict, dev, args, tags, rel_tol, min_kept) -> dict:
+def phase_request(cfg, model, rd: dict, dev, args, tags, rel_tol, min_kept, ref=None) -> dict:
     """One ReTaKe request through ``Qwen2VLEngine.generate`` at ``--frames``
     with launch counts (phase tags[0]); the same request warm and bit-exact
     (tags[1]); kernel path vs plain path at 64 frames, bounded by
     ``rel_tol`` on the first logits and ``min_kept`` on the entries PivotKV
-    kept (tags[2]). Returns the launch counts of the first run."""
+    kept (tags[2]). Returns the launch counts of the first run; ``ref`` (a
+    dict) gets its tokens, first logits and cache positions on the host
+    (phase 24's tp = 1 reference)."""
     from retake_tpu_torch.runtime.engine import Qwen2VLEngine, plan_chunks
     from retake_tpu_torch.utils.config import RetakeConfig
 
@@ -983,6 +1018,9 @@ def phase_request(cfg, model, rd: dict, dev, args, tags, rel_tol, min_kept) -> d
     }
     log(f"[{t5}] bit-exact repeat: {same}")
     check(all(same.values()), same)
+    if ref is not None:  # the entries the prefill kept (decode appends after them)
+        ref.update(tokens=toks, first_logits=res.first_logits,
+                   pos=res.cache.pos[:, :, :res.cache_fill].cpu().numpy())
     dec_ms2 = 1e3 * res2.decode_seconds / max(len(res2.tokens) - 1, 1)
     log(f"[{t5}] warm (stage fences on): TTFT {res2.prefill_seconds:.3f} s, "
         f"decode {dec_ms2:.2f} ms/token, stages "
@@ -1939,6 +1977,155 @@ def phase_kernels_llava(dev, records):
     torch.cuda.empty_cache()
 
 
+def phase_kernels_tp_shapes(dev, records):
+    """The shapes phase 24's ranks give the kernels (tensor parallelism over
+    two ranks: each runs its half of the query and KV heads, the GQA group
+    unchanged), and the 2B's at tp = 2: K1 at 14/2 heads over a LLaVA chunk
+    (S = 6272) and at 6/1 (S = 2304), K1-int8 at 14/2 (S = 2304), K2 at
+    14/2 (S = 2304, 6272) and 6/1, K4-int8 at G 7 / KV 2 and K4 at G 6 / KV 1
+    and G 7 / KV 2 over the 43008-column serving bucket (B 4). Error against
+    the plain twin, bitwise repeat, CUDA-event medians, bound and share, and
+    SDPA's time for K1, under each record's ``new_shapes``."""
+    from retake_tpu_torch.ops import attention
+    from retake_tpu_torch.ops.cuda import decode_gapped, flash_prefill, pivot_scores
+    from retake_tpu_torch.ops.quantization import quantize_kv_block
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    d, budget = 128, 40960
+    k1, k2 = flash_prefill.flash_prefill_attention, pivot_scores.pivot_score_sums
+    for key in ("K1-int8", "K4", "K4-int8"):
+        records[key].setdefault("new_shapes", [])
+    # K1 (bf16 and int8 cache) and K2: (kv, g, s, int8, path)
+    for kv, g, s, int8, path in TP_K1_CASES:
+        h = kv * g
+        key = "K1-int8" if int8 else "K1"
+        q = bf16(gen, (h, s, d), dev)
+        kc, vc = bf16(gen, (kv, budget, d), dev), bf16(gen, (kv, budget, d), dev)
+        kn, vn = bf16(gen, (kv, s, d), dev), bf16(gen, (kv, s, d), dev)
+        extra = ()
+        if int8:
+            (kc, kcs), (vc, vcs) = quantize_kv_block(kc), quantize_kv_block(vc)
+            (kn8, kns), (vn8, vns) = quantize_kv_block(kn), quantize_kv_block(vn)
+            extra = (kcs, vcs, (kns, vns))
+
+        def args(cache_len, valid_len):
+            return ((q, kc, vc, i32(cache_len), kn8, vn8, i32(valid_len)) + extra if int8
+                    else (q, kc, vc, i32(cache_len), kn, vn, i32(valid_len)))
+
+        def plain(cache_len, valid_len):
+            if int8:
+                return flash_prefill.flash_prefill_attention_plain(*args(cache_len, valid_len))
+            a = args(cache_len, valid_len)
+            return k1_plain_per_kv_head(*a, cache_len)
+
+        worst = 0.0
+        for cache_len, valid_len in ((0, s), (20000, s), (20000, s - 305)):
+            got, again = k1(*args(cache_len, valid_len)), k1(*args(cache_len, valid_len))
+            want = plain(cache_len, valid_len)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), (key, "not bitwise repeatable", path, cache_len))
+            err, tol = max_err(got, want), bf16_tol(want)
+            worst = max(worst, err)
+            log(f"{key} {path} heads {h}/{kv} S={s} cache_len={cache_len} valid_len={valid_len}: "
+                f"max_abs_err {err:.3e} (tol {tol:.3e})")
+            check(err <= tol, (key, path, cache_len, valid_len, err, tol))
+            del got, again, want
+        t_k = cuda_ms(lambda: k1(*args(20000, s)), 20)
+        t_p = cuda_ms(lambda: plain(20000, s), 3, 1)
+        t_l = backend = None
+        if not int8:  # no single call dequantizes per-key int8 K/V and attends
+            lib, backend = sdpa_call(q, kc, vc, kn, vn, 20000, s)
+            t_l = cuda_ms(lib, 10)
+            del lib
+        flops, nbytes = k1_work(h, kv, s, d, 20000, s, int8)
+        b, by = bound(flops, nbytes)
+        lib_text = "" if t_l is None else f" SDPA ({backend}) {t_l:.4f} ms;"
+        log(f"{key} {path} heads {h}/{kv} S={s} cache_len=20000: kernel {t_k:.4f} ms plain "
+            f"{t_p:.3f} ms;{lib_text} bound {b:.4f} ms ({by}), {100 * b / t_k:.1f}% of it")
+        records[key]["new_shapes"].append(dict(
+            path=path, heads=f"{h}/{kv}", s=s, budget=budget, cache_len=20000, valid_len=s,
+            max_abs_err=worst, ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by,
+            bound_share=b / t_k, library_ms=t_l, library_backend=backend))
+        # K2 scores this chunk's q / k (bf16)
+        worst = 0.0
+        for valid_len in (s, s - 305, 1):
+            vl = i32(valid_len)
+            got, again = k2(q, kn, vl), k2(q, kn, vl)
+            want = pivot_scores.pivot_score_sums_plain(q, kn, vl)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), ("K2 not bitwise repeatable", path, valid_len))
+            err = max_err(got, want)
+            worst = max(worst, err)
+            log(f"K2 {path} heads {h}/{kv} S={s} valid_len={valid_len}: max_abs_err "
+                f"{err:.3e} (tol {K2_TOL})")
+            check(err <= K2_TOL, ("K2", path, valid_len, err))
+            del got, again, want
+        vl = i32(s)
+        t_k = cuda_ms(lambda: k2(q, kn, vl), 20)
+        t_p = cuda_ms(lambda: pivot_scores.pivot_score_sums_plain(q, kn, vl), 5)
+        b, by = bound(2 * d * h * s * s, 2 * h * s * d + 2 * kv * s * d + 4 * kv * s)
+        log(f"K2 {path} heads {h}/{kv} S={s}: kernel {t_k:.4f} ms plain {t_p:.3f} ms; bound "
+            f"{b:.4f} ms ({by}), {100 * b / t_k:.1f}% of it")
+        records["K2"]["new_shapes"].append(dict(
+            path=path, heads=f"{h}/{kv}", s=s, valid_len=s, max_abs_err=worst, ms=t_k,
+            plain_ms=t_p, bound_ms=b, bound_by=by, bound_share=b / t_k, library_ms=None))
+        del q, kc, vc, kn, vn
+        torch.cuda.empty_cache()
+    # K4 / K4-int8 at the serving bucket: 4 slots, mixed live columns, one
+    # all-dead slot in the second case
+    b, s = 4, 43008
+    cases = [([32002, 18498, 4674, 20000], [40960, 40976, 40992, 40960], 40960, 64),
+             ([32002, 18498, 4674, 0], [40960, 40976, 40992, 41024], 40960, 64)]
+    k4 = decode_gapped.decode_gapped_flash_state
+    for kvh, g, int8, path in TP_K4_CASES:
+        key = "K4-int8" if int8 else "K4"
+        q = bf16(gen, (b, kvh * g, d), dev)
+        kc, vc = bf16(gen, (b, kvh, s, d), dev), bf16(gen, (b, kvh, s, d), dev)
+        ks = vs = None
+        if int8:
+            (kc, ks), (vc, vs) = quantize_kv_block(kc), quantize_kv_block(vc)
+        kn, vn = bf16(gen, (b, kvh, d), dev), bf16(gen, (b, kvh, d), dev)
+        q4 = q.reshape(b, kvh, g, d)
+        worst = 0.0
+        for ci, (fl, ds, gap_start, gap_filled) in enumerate(cases):
+            final_len, dec_start = i32(fl), i32(ds)
+            we = gap_start + gap_filled
+            args = (q, kc, vc, final_len, gap_start, gap_filled, kn, vn, ks, vs)
+            got = attention.decode_attention_batch_gapped(*args, dec_start=dec_start, impl="pallas")
+            want = attention.decode_attention_batch_gapped(*args, dec_start=dec_start, impl="xla")
+            sargs = (q4, kc, vc, final_len, dec_start, we) + ((ks, vs) if int8 else ())
+            state, again = k4(*sargs), k4(*sargs)
+            _, pm, pl = decode_gapped.decode_gapped_flash_state_plain(*sargs)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(state, again)),
+                  (key, "not bitwise repeatable", path))
+            live = pl > 0
+            err, tol = max_err(got, want), bf16_tol(want)
+            m_err = max_err(state[1][live], pm[live])
+            worst = max(worst, err)
+            log(f"{key} {path} B={b} KV={kvh} G={g} S={s} case {ci}: max_abs_err {err:.3e} "
+                f"(tol {tol:.3e}), m err {m_err:.3e} (tol {K4_M_TOL})")
+            check(err <= tol and m_err <= K4_M_TOL, (key, path, ci, err, tol, m_err))
+            if ci == 0:
+                t_k = cuda_ms(lambda: k4(*sargs), 20)
+                t_p = cuda_ms(lambda: decode_gapped.decode_gapped_flash_state_plain(*sargs), 5)
+                n_live = sum(fl) + sum(we - x for x in ds)
+                row = 2 * d + 8 if int8 else 4 * d
+                flops = 4 * n_live * kvh * g * d
+                nbytes = n_live * kvh * row + 2 * b * kvh * g * d + 4 * b * kvh * g * (d + 2)
+            del got, want, state, again
+        bnd, by = bound(flops, nbytes)
+        log(f"{key} {path} KV={kvh} G={g}: kernel {t_k:.4f} ms plain {t_p:.4f} ms; bound "
+            f"{bnd:.4f} ms ({by}), {100 * bnd / t_k:.1f}% of it")
+        records[key]["new_shapes"].append(dict(
+            path=path, heads=f"G {g} / KV {kvh}", b=b, s=s, max_abs_err=worst, ms=t_k,
+            plain_ms=t_p, bound_ms=bnd, bound_by=by, bound_share=bnd / t_k, library_ms=None))
+        del q, q4, kc, vc, kn, vn, ks, vs
+        torch.cuda.empty_cache()
+
+
 def hf_tensors_of(cfg, params) -> dict:
     """The inverse of ``params.from_hf_tensors``: a Qwen2-VL parameter tree
     under HF tensor names, torch ``[out, in]`` linears, one tensor a layer
@@ -2123,7 +2310,7 @@ def llava_request(cfg, frames: int, dev, seed: int):
     return ids, vid
 
 
-def phase_llava(dev, args) -> dict:
+def phase_llava(dev, args, ref=None) -> dict:
     """LLaVA-Video-7B at full width and depth (``LlavaOnevisionConfig()``),
     random bf16 weights drawn on the card from the seed, under
     configs/llava_video/retake_llava-video_videomme.yaml with
@@ -2132,7 +2319,9 @@ def phase_llava(dev, args) -> dict:
     K2 = 28 x video chunks, no K3), SigLIP's time; at 64 frames kernel vs
     plain arm and "flash" vs "pallas", prefix reuse, a 3-request
     ``generate_batch`` (K4) and a W8A8 request against bf16. Returns the
-    launches by path."""
+    launches by path; ``ref`` (a dict) gets the 64-frame kernel-path
+    request's first logits and cache positions (phase 24's tp = 1
+    reference)."""
     from retake_tpu_torch.models.llava_onevision import params as lparams
     from retake_tpu_torch.models.llava_onevision.config import LlavaOnevisionConfig
     from retake_tpu_torch.models.llava_onevision.model import LlavaOnevisionModel
@@ -2235,6 +2424,9 @@ def phase_llava(dev, args) -> dict:
         check(a.cache_fill == b.cache_fill == a.cache_len < len(ids6), (a.cache_fill, b.cache_fill))
         check(rel <= LLAVA_REL_LOGIT_TOL and kept >= LLAVA_MIN_KEPT, (impl, rel, kept))
         check(launches[impl]["K1"] == launches[impl]["K2"] == 0, launches[impl])
+    if ref is not None:
+        ref.update(first_logits=a.first_logits,
+                   pos=a.cache.pos[:, :, :a.cache_fill].cpu().numpy())
     plain_kept = kept_agreement(out["xla"].cache, out["flash"].cache, a.cache_fill)
     log(f"[22] 64 frames, the two plain arms (xla vs flash, the same plain PivotKV scores): "
         f"kept entries in common {plain_kept:.4f}")
@@ -2573,6 +2765,311 @@ def phase_eval(cfg, dev, seed: int, hf_dir: str) -> dict:
     return launches
 
 
+# ---------- phase 24: tensor parallelism, two ranks
+
+
+def tp_rank_main(args) -> int:
+    """One rank of phase 24 (``--tp-rank``), a process of its own: joins the
+    group (gloo with both ranks on cuda:0, NCCL on cuda:rank when the
+    machine has TP_SIZE cards), loads the kernel library phase 2 built (it
+    never runs nvcc), and runs (a) Qwen2-VL-7B under SERVING_7B at
+    ``--frames``, (b) the TP_SERVE requests through ``ContinuousServer.run``
+    with rank 0 leading, (c) LLaVA-Video-7B at TP_LLAVA_FRAMES and a
+    ``generate_batch``. Every replicated value is digested and compared
+    across the ranks (``tp.check``); the collectives are timed alone
+    (``tp.timed``). Writes its tokens, first logits and cache positions to
+    ``--tp-out``/rank{r}.npz and a JSON summary to rank{r}.json."""
+    import torch.distributed as dist
+
+    from retake_tpu_torch.models.llava_onevision import params as lparams
+    from retake_tpu_torch.models.llava_onevision.config import LlavaOnevisionConfig
+    from retake_tpu_torch.models.llava_onevision.model import LlavaOnevisionModel
+    from retake_tpu_torch.models.qwen2_vl import params as params_lib
+    from retake_tpu_torch.models.qwen2_vl.config import qwen2_vl_7b
+    from retake_tpu_torch.models.qwen2_vl.model import Qwen2VLModel
+    from retake_tpu_torch.ops.cuda import _build
+    from retake_tpu_torch.parallel import make_mesh, shard_params
+    from retake_tpu_torch.runtime.engine import Qwen2VLEngine, plan_chunks
+    from retake_tpu_torch.runtime.llava_engine import LlavaOnevisionEngine
+    from retake_tpu_torch.runtime.serve import ContinuousServer
+    from retake_tpu_torch.utils.config import RetakeConfig
+
+    t_rank = time.perf_counter()
+    rank = args.tp_rank
+    tag = f"[24 r{rank}]"
+    backend = "nccl" if torch.cuda.device_count() >= TP_SIZE else "gloo"
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(_build.library_path().exists(), "phase 2's kernel library is missing")
+    _build.library()
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{args.tp_port}",
+                            world_size=TP_SIZE, rank=rank)
+    tp = make_mesh(dp=1, tp=TP_SIZE, backend=backend).tp
+    tp.check = tp.timed = True
+    summary = dict(rank=rank, backend=backend, device=str(dev))
+    arrays = {}
+
+    def measure(fn):
+        """fn() with launches, collective seconds / calls, wall and peak."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        tp.seconds, tp.calls = 0.0, 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, dict(launches=read_counts(), wall_s=wall, collective_s=tp.seconds,
+                         collective_calls=tp.calls, collective_share=tp.seconds / wall,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+    # (a) Qwen2-VL-7B, the serving config, one request
+    cfg7 = qwen2_vl_7b()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    full = params_lib.init_params(cfg7, seed=args.seed, device=dev, quantize_int8=True,
+                                  quantize_vit_int8=True)
+    model = Qwen2VLModel(cfg7, shard_params(full, tp), tp)
+    del full
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    summary["weight_gb_7b"] = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    summary["build_peak_gib_7b"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{tag} {backend} on {dev}; 7B built and sharded in {time.perf_counter() - t0:.1f} s: "
+        f"{summary['weight_gb_7b']:.2f} GB of weights on this rank (heads "
+        f"{model.num_heads}/{model.num_kv_heads}), build peak {summary['build_peak_gib_7b']:.2f} GiB")
+    rt7 = RetakeConfig.from_dict(dict(RETAKE_CONFIG, **SERVING_7B))
+    engine = Qwen2VLEngine(cfg7, model, rt7, device=dev, tp=tp)
+    ids, patches, grid = build_request(cfg7, args.frames, dev, args.seed)
+    ratio = rt7.compression_ratio_for(len(ids))
+    plan, final_len, _ = plan_chunks(ids, cfg7.video_token_id, engine.get_chunk_tokens(grid[0]),
+                                     ratio, ratio < 1.0)
+    res, m = measure(lambda: engine.generate(ids, patches, grid, max_new_tokens=MAX_NEW_TOKENS))
+    n = res.cache_fill
+    n_video = sum(p["kind"] == "video" for p in plan)
+    m.update(ttft_s=res.prefill_seconds, cache_fill=n, plan_steps=len(plan), video_chunks=n_video,
+             decode_ms_per_token=1e3 * res.decode_seconds / max(len(res.tokens) - 1, 1))
+    summary["request"] = m
+    arrays.update(a_tokens=res.tokens, a_first_logits=res.first_logits,
+                  a_pos=res.cache.pos[:, :, :n].cpu().numpy())
+    la = m["launches"]
+    L, vit_chunks = cfg7.num_hidden_layers, -(-int(grid[0][0]) // rt7.frame_chunk_size)
+    log(f"{tag} (a) {args.frames} frames: TTFT {res.prefill_seconds:.3f} s, decode "
+        f"{m['decode_ms_per_token']:.2f} ms/token, cache {n} (planned {final_len}), collectives "
+        f"{m['collective_s']:.3f} s in {m['collective_calls']} calls = "
+        f"{100 * m['collective_share']:.1f}% of {m['wall_s']:.3f} s, peak {m['peak_gib']:.2f} GiB; "
+        f"launches {la}; tokens {res.tokens[:6].tolist()}")
+    check(n == final_len == res.cache_len and res.cache.k.shape[1] == cfg7.num_key_value_heads
+          // TP_SIZE and res.cache.quantized, (n, final_len, res.cache.k.shape))
+    check(la["K1-int8"] >= L * len(plan) and la["K2"] >= L * n_video
+          and la["K3"] >= cfg7.vision.depth * vit_chunks and la["K1"] == la["K4"] == 0
+          and la["K4-int8"] == 0, la)
+    del res, patches
+    torch.cuda.empty_cache()
+
+    # (b) the server: rank 0 reads the clock and broadcasts each event
+    reqs, arrivals = [], []
+    for i in TP_SERVE:
+        frames, arrival, own_max = SERVE_REQUESTS[i]
+        r_ids, r_patches, r_grid = build_request(cfg7, frames, dev, args.seed + i)
+        req = dict(input_ids=r_ids, pixel_values_videos=r_patches, video_grid_thw=r_grid)
+        if own_max is not None:
+            req["max_new_tokens"] = own_max
+        reqs.append(req)
+        arrivals.append(arrival)
+    server = ContinuousServer(engine, **SERVE_KW)
+    results, m = measure(lambda: server.run(reqs, arrival_times=arrivals))
+    n_dec = sum(len(r.tokens) - 1 for r in results)
+    m.update(stats=server.stats, tokens_per_s=n_dec / m["wall_s"],
+             ttft_s=[r.ttft_s for r in results])
+    summary["server"] = m
+    for i, r in zip(TP_SERVE, results):
+        arrays[f"b_tokens_{i}"] = r.tokens
+    lb = m["launches"]
+    k4_want = L * SERVE_KW["segment_steps"] * server.stats["segments_dispatched"]
+    log(f"{tag} (b) served {len(results)} requests ({[SERVE_REQUESTS[i][0] for i in TP_SERVE]} "
+        f"frames) in {m['wall_s']:.3f} s, {m['tokens_per_s']:.2f} tok/s, TTFT "
+        f"{[round(t, 3) for t in m['ttft_s']]} s, collectives {100 * m['collective_share']:.1f}%, "
+        f"peak {m['peak_gib']:.2f} GiB; stats {json.dumps(server.stats)}; launches {lb}")
+    check(lb["K4-int8"] == k4_want and lb["K4"] == 0 and server.stats["compactions"] >= 1
+          and all(not r.cancelled for r in results), (lb, k4_want, server.stats))
+    del server, results, reqs, engine, model
+    torch.cuda.empty_cache()
+
+    # (c) LLaVA-Video-7B: frame-sharded SigLIP, K1 / K2 at 14/2 heads
+    root = os.path.dirname(os.path.abspath(__file__))
+    rt = dataclasses.replace(RetakeConfig.from_yaml(os.path.join(root, LLAVA_YAML)),
+                             attn_implementation="pallas")
+    rd64 = dataclasses.replace(rt, kv=dataclasses.replace(rt.kv, max_input_length=8000))
+    cfg = LlavaOnevisionConfig()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    full = lparams.init_params(cfg, seed=args.seed, device=dev)
+    lmodel = LlavaOnevisionModel(cfg, shard_params(full, tp), tp)
+    del full
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    summary["weight_gb_llava"] = sum(p.numel() * p.element_size() for p in lmodel.parameters()) / 1e9
+    summary["build_peak_gib_llava"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{tag} LLaVA-Video-7B built and sharded in {time.perf_counter() - t0:.1f} s: "
+        f"{summary['weight_gb_llava']:.2f} GB on this rank, build peak "
+        f"{summary['build_peak_gib_llava']:.2f} GiB")
+    leng = LlavaOnevisionEngine(cfg, lmodel, rd64, device=dev, tp=tp)
+    ids6, vid6 = llava_request(cfg, TP_LLAVA_FRAMES, dev, args.seed + 1)
+    ratio = rd64.compression_ratio_for(len(ids6))
+    plan, _, _ = plan_chunks(ids6, cfg.video_token_id, leng.get_chunk_tokens(TP_LLAVA_FRAMES),
+                             ratio, ratio < 1.0)
+    res, m = measure(lambda: leng.generate(ids6, vid6, max_new_tokens=MAX_NEW_TOKENS))
+    n = res.cache_fill
+    n_video = sum(p["kind"] == "video" for p in plan)
+    m.update(ttft_s=res.prefill_seconds, cache_fill=n, plan_steps=len(plan),
+             decode_ms_per_token=1e3 * res.decode_seconds / max(len(res.tokens) - 1, 1))
+    summary["llava"] = m
+    arrays.update(c_tokens=res.tokens, c_first_logits=res.first_logits,
+                  c_pos=res.cache.pos[:, :, :n].cpu().numpy())
+    lc = m["launches"]
+    Lt = cfg.text.num_hidden_layers
+    log(f"{tag} (c) LLaVA {TP_LLAVA_FRAMES} frames: TTFT {res.prefill_seconds:.3f} s, decode "
+        f"{m['decode_ms_per_token']:.2f} ms/token, cache {n}, collectives "
+        f"{100 * m['collective_share']:.1f}%, peak {m['peak_gib']:.2f} GiB; launches {lc}")
+    check(lc["K1"] == Lt * len(plan) and lc["K2"] == Lt * n_video and lc["K3"] == 0
+          and lc["K4"] == lc["K1-int8"] == 0 and n == res.cache_len, (lc, len(plan), n_video))
+    del res
+    reqs = []
+    for i, f in enumerate(TP_LLAVA_BATCH):
+        r_ids, r_vid = llava_request(cfg, f, dev, args.seed + 30 + i)
+        reqs.append(dict(input_ids=r_ids, pixel_values_videos=r_vid))
+    batch, m = measure(lambda: leng.generate_batch(reqs, max_new_tokens=MAX_NEW_TOKENS))
+    steps = max(len(x.tokens) for x in batch) - 1
+    summary["llava_batch"] = m
+    for i, x in enumerate(batch):
+        arrays[f"c_batch_{i}"] = x.tokens
+    lg = m["launches"]
+    log(f"{tag} (c) generate_batch {TP_LLAVA_BATCH} frames in {m['wall_s']:.3f} s: launches {lg}")
+    check(lg["K4"] >= Lt * steps > 0 and lg["K3"] == 0, (lg, steps))
+    del batch, reqs, leng, lmodel
+    summary["seconds"] = time.perf_counter() - t_rank
+    dist.destroy_process_group()
+    np.savez(os.path.join(args.tp_out, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(args.tp_out, f"rank{rank}.json"), "w") as f:
+        json.dump(summary, f)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _pos_agreement(a: np.ndarray, b: np.ndarray) -> float:
+    """``kept_agreement`` over two caches' position arrays [L, 3, n]."""
+    n = min(a.shape[2], b.shape[2])
+    return kept_agreement(types.SimpleNamespace(pos=torch.from_numpy(a)),
+                          types.SimpleNamespace(pos=torch.from_numpy(b)), n)
+
+
+def phase_tp(args, refs: dict) -> dict:
+    """Phase 24: spawn TP_SIZE ranks of this script (``tp_rank_main``), wait
+    for both (any rank's failure fails the phase; a rank past
+    TP_TIMEOUT_S is killed), then hold them to each other bit for bit
+    (tokens, first logits, cache positions) and to the tp = 1 runs of the
+    same seeds and weights: (a) phase 10's first logits and kept entries,
+    (b) phase 11's streams of the same requests, (c) phase 22's 64-frame
+    kernel-path request. Returns the launches by path (rank 0's; each rank
+    launches the same kernels)."""
+    out_dir = tempfile.mkdtemp(prefix="retake_tp_")
+    port = _free_port()
+    script = os.path.abspath(__file__)
+    procs, logs = [], []
+    for r in range(TP_SIZE):
+        lf = open(os.path.join(out_dir, f"rank{r}.log"), "w")
+        logs.append(lf)
+        procs.append(subprocess.Popen(
+            [sys.executable, script, "--tp-rank", str(r), "--tp-port", str(port), "--tp-out",
+             out_dir, "--frames", str(args.frames), "--seed", str(args.seed)],
+            stdout=lf, stderr=subprocess.STDOUT, cwd=os.path.dirname(script)))
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, TP_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for lf in logs:
+            lf.close()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+            text = f.read()
+        lines = text.splitlines()
+        shown = [ln for ln in lines if ln.startswith("[24 ")] if p.returncode == 0 else lines[-60:]
+        for ln in shown:
+            log(ln)
+        check(p.returncode == 0, (f"rank {r} exited with {p.returncode}", wall))
+    ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))) for r in range(TP_SIZE)]
+    summ = []
+    for r in range(TP_SIZE):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            summ.append(json.load(f))
+    same = {k: all(np.array_equal(x[k], ranks[0][k]) for x in ranks) for k in ranks[0]}
+    log(f"[24] {TP_SIZE} ranks ({summ[0]['backend']}) in {wall:.1f} s; ranks bit-identical: {same}")
+    check(all(same.values()), same)
+    for part in ("request", "server", "llava", "llava_batch"):
+        check(all(s[part]["launches"] == summ[0][part]["launches"] for s in summ),
+              (part, [s[part]["launches"] for s in summ]))
+    r0 = ranks[0]
+    a_ref, c_ref = refs.get("10"), refs.get("22")
+    if a_ref is not None:
+        rel = float(np.abs(r0["a_first_logits"] - a_ref["first_logits"]).max()
+                    / np.abs(a_ref["first_logits"]).max())
+        kept = _pos_agreement(r0["a_pos"], a_ref["pos"])
+        log(f"[24] (a) tp = {TP_SIZE} vs tp = 1 (phase 10): first logits rel max|diff| {rel:.3e} "
+            f"(bound {TP_REL_LOGIT_TOL}), kept entries in common {kept:.4f} (bound "
+            f"{E2E7_MIN_KEPT_AGREEMENT}); cache {r0['a_pos'].shape[2]} vs {a_ref['pos'].shape[2]}; "
+            f"tokens {r0['a_tokens'][:6].tolist()} / {a_ref['tokens'][:6].tolist()}")
+        check(r0["a_pos"].shape == a_ref["pos"].shape, "cache fill")
+        check(rel <= TP_REL_LOGIT_TOL and kept >= E2E7_MIN_KEPT_AGREEMENT, (rel, kept))
+    if refs.get("11") is not None:
+        agree = total = 0
+        for i in TP_SERVE:
+            a, b = r0[f"b_tokens_{i}"], refs["11"][i]
+            k = min(len(a), len(b))
+            agree += int(np.sum(a[:k] == b[:k]))
+            total += max(len(a), len(b))
+        log(f"[24] (b) served tokens vs phase 11's streams: agreement {agree / total:.4f} (bound "
+            f"{TP_MIN_AGREEMENT})")
+        check(agree / total >= TP_MIN_AGREEMENT, agree / total)
+    if c_ref is not None:
+        rel = float(np.abs(r0["c_first_logits"] - c_ref["first_logits"]).max()
+                    / np.abs(c_ref["first_logits"]).max())
+        kept = _pos_agreement(r0["c_pos"], c_ref["pos"])
+        log(f"[24] (c) LLaVA tp = {TP_SIZE} vs tp = 1 (phase 22, 64 frames): first logits rel "
+            f"max|diff| {rel:.4f} (bound {LLAVA_REL_LOGIT_TOL}), kept entries in common "
+            f"{kept:.4f} (bound {LLAVA_MIN_KEPT})")
+        check(r0["c_pos"].shape == c_ref["pos"].shape, "LLaVA cache fill")
+        check(rel <= LLAVA_REL_LOGIT_TOL and kept >= LLAVA_MIN_KEPT, (rel, kept))
+    for s_ in summ:
+        a, b, c = s_["request"], s_["server"], s_["llava"]
+        log(f"[24] rank {s_['rank']} ({s_['backend']}, {s_['device']}): request TTFT "
+            f"{a['ttft_s']:.3f} s, decode {a['decode_ms_per_token']:.2f} ms/token, peak "
+            f"{a['peak_gib']:.2f} GiB, collectives {100 * a['collective_share']:.1f}% of wall; "
+            f"server {b['tokens_per_s']:.2f} tok/s, collectives {100 * b['collective_share']:.1f}%; "
+            f"LLaVA TTFT {c['ttft_s']:.3f} s, collectives {100 * c['collective_share']:.1f}%; "
+            f"rank wall {s_['seconds']:.1f} s")
+    return {"24 request": summ[0]["request"]["launches"],
+            "24 server": summ[0]["server"]["launches"],
+            "24 llava": {k: summ[0]["llava"]["launches"][k] + summ[0]["llava_batch"]["launches"][k]
+                         for k in summ[0]["llava"]["launches"]}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=512, help="raw video frames (2048 = bench)")
@@ -2581,6 +3078,10 @@ def main() -> int:
                     help="profile one more warm request and decode step")
     ap.add_argument("--llava-frames", type=int, default=256,
                     help="phase 22's LLaVA-Video request (1024 = the published config)")
+    # phase 24 starts this script again as each of its ranks
+    ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-out", type=str, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -2589,6 +3090,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA GPU",
               file=sys.stderr)
         return 2
+    if args.tp_rank is not None:
+        return tp_rank_main(args)
     from retake_tpu_torch.models.qwen2_vl import params as params_lib
     from retake_tpu_torch.models.qwen2_vl.config import qwen2_vl_2b, qwen2_vl_7b
     from retake_tpu_torch.models.qwen2_vl.model import Qwen2VLModel
@@ -2619,6 +3122,7 @@ def main() -> int:
     phase_kernels_int8(dev, records)
     phase_kernels_new_shapes(dev, records)
     phase_kernels_llava(dev, records)
+    phase_kernels_tp_shapes(dev, records)
     log("[3] kernels match their plain versions")
 
     # 4-6. 2B in bf16: one request, its repeat, kernel vs plain path
@@ -2705,9 +3209,13 @@ def main() -> int:
     log(f"[10] 7B model built (int8 LLM and ViT linears) in {time.perf_counter() - t0:.1f} s: "
         f"{weight_gb:.2f} GB of weights, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     rd7 = dict(RETAKE_CONFIG, **SERVING_7B)
+    tp_refs = {"10": {}, "22": {}}
     launches7 = phase_request(cfg7, model7, rd7, dev, args, ("10", "10", "10"),
-                              E2E7_REL_LOGIT_TOL, E2E7_MIN_KEPT_AGREEMENT)
-    serve7 = phase_serve(cfg7, model7, RetakeConfig.from_dict(rd7), dev, args.seed, tag="11")[0]
+                              E2E7_REL_LOGIT_TOL, E2E7_MIN_KEPT_AGREEMENT, ref=tp_refs["10"])
+    serve7, streams7 = phase_serve(cfg7, model7, RetakeConfig.from_dict(rd7), dev, args.seed,
+                                   tag="11")
+    tp_refs["11"] = [tokens for _, tokens in streams7]  # host arrays; the requests go
+    del streams7
     paths.update({"10": launches7, "11": serve7})
     # 14 (7B): the prefix of a 64-frame video in the serving config (int8 KV)
     phase_reuse(cfg7, model7, rd7, dev, 64, args.seed, "14 7B", features=False)
@@ -2716,9 +3224,17 @@ def main() -> int:
 
     # 22. LLaVA-Video-7B at full width and depth
     t22 = time.perf_counter()
-    paths.update(phase_llava(dev, args))
+    paths.update(phase_llava(dev, args, ref=tp_refs["22"]))
     t22 = time.perf_counter() - t22
     log(f"[22] LLaVA-Video-7B: {t22:.1f} s")
+
+    # 24. tensor parallelism: two ranks of 7B (request, server) and of
+    # LLaVA-Video-7B, held to each other and to phases 10, 11 and 22
+    torch.cuda.empty_cache()
+    t24 = time.perf_counter()
+    paths.update(phase_tp(args, tp_refs))
+    t24 = time.perf_counter() - t24
+    log(f"[24] tensor parallelism: {t24:.1f} s")
 
     # the kernels line: K1-K3 from the 2B request (phase 4), K4 from the 2B
     # server (phase 7), K1-int8 from the 7B request (phase 10), K4-int8 from
@@ -2731,7 +3247,8 @@ def main() -> int:
         for key in ("K1", "K1-int8", "K2", "K3", "K4", "K4-int8")
     ]}
     log(f"[end] chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s (phases 12-16 "
-        f"{t_new:.1f} s, 17-20 {t_rest:.1f} s, 21 {t21:.1f} s, 22 {t22:.1f} s, 23 {t23:.1f} s)")
+        f"{t_new:.1f} s, 17-20 {t_rest:.1f} s, 21 {t21:.1f} s, 22 {t22:.1f} s, 23 {t23:.1f} s, "
+        f"24 {t24:.1f} s)")
     log(smi)
     print(json.dumps(kernel_line))
     print(json.dumps({"ok": True, "device": {

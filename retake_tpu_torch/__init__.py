@@ -24,6 +24,9 @@ Package map:
                     ViT attention, K4 gap-layout batched decode and its
                     int8-KV mode), their plain twins and the nvcc build
   csrc/             the CUDA C++ sources (sm_90a)
+  parallel/         tensor parallelism: the ``TensorParallel`` handle over a
+                    process group, ``make_mesh``, the JAX sharding rules
+                    (``shard_params``), replica digests
   runtime/          static KV cache (bf16 or int8); the chunked-prefill
                     engine (video, image and mixed prompts, prompt-guided
                     compression, DPSelect / MA-LLM visual compression,

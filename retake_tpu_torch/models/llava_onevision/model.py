@@ -3,7 +3,9 @@ SigLIP tower, the projector and ``image_newline`` as one module.
 
 Parameter names are the JAX tree's keys with ``.`` for ``/``
 (``layers.q.w``, ``vision_tower.blocks.q.w``, ``projector.linear_1.w``);
-int8 linear weights are stored column-major (``col_major_int8``).
+int8 linear weights are stored column-major (``col_major_int8``). ``tp``:
+a ``TensorParallel`` handle, with ``params`` the rank's ``shard_params``
+slice (SigLIP and the projector are whole).
 """
 
 from __future__ import annotations
@@ -17,8 +19,8 @@ from retake_tpu_torch.ops.quantization import col_major_int8
 
 
 class LlavaOnevisionModel(TextDecoder):
-    def __init__(self, cfg: LlavaOnevisionConfig, params: dict):
-        super().__init__(cfg.text, params)
+    def __init__(self, cfg: LlavaOnevisionConfig, params: dict, tp=None):
+        super().__init__(cfg.text, params, tp)
         self.vision_tower = ParamTree(col_major_int8(params["vision_tower"]))
         self.projector = ParamTree(col_major_int8(params["projector"]))
         self.image_newline = nn.Parameter(params["image_newline"], requires_grad=False)

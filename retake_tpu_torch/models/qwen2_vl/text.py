@@ -27,6 +27,14 @@
   attend with bf16 chunk keys and quantize them at the append, as the JAX
   module does.
   The embedding and LM head may be int8 too.
+* Tensor parallelism (``parallel/mesh.py``): a decoder built with a
+  ``TensorParallel`` handle holds its rank's heads and MLP columns
+  (``shard_params``) and runs every attention kernel on its own heads and
+  KV heads. Per layer, the row-parallel o and down projections all-reduce
+  (``quantization.qlinear`` with ``tp``) and a compressing chunk
+  all-reduces PivotKV's head sum before the ranking, so ``perm`` and the
+  reforged positions are the same on every rank; an untied LM head is
+  vocabulary-parallel, its logits all-gathered.
 
 Numerics follow the JAX module: activations in the model dtype, fp32
 RMSNorm statistics (normalize, cast, then scale), fp32 softmax, and the
@@ -47,6 +55,7 @@ from retake_tpu_torch.ops import attention as attn_ops
 from retake_tpu_torch.ops import pivotkv, rope
 from retake_tpu_torch.ops import quantization as q8
 from retake_tpu_torch.ops.cuda import flash_prefill, pivot_scores
+from retake_tpu_torch.parallel.mesh import kv_slice
 from retake_tpu_torch.runtime.cache import KVCache, write_layer_block
 
 
@@ -63,11 +72,21 @@ class TextDecoder(nn.Module):
     ``embed_tokens`` and ``lm_head`` are int8 ``{'w', 'scale'}`` pairs after
     ``quantize_llm_int8``. int8 linear weights are stored column-major
     (``ops/quantization.col_major_int8``); the embedding stays row-major, it
-    is read by rows."""
+    is read by rows. ``tp``: a ``TensorParallel`` handle; ``params`` is then
+    the rank's ``shard_params`` slice and ``num_heads`` / ``num_kv_heads``
+    are the rank's."""
 
-    def __init__(self, cfg: Qwen2VLConfig, params: dict):
+    def __init__(self, cfg: Qwen2VLConfig, params: dict, tp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
+        kv = kv_slice(cfg.num_key_value_heads, tp)  # raises unless tp divides the KV heads
+        self.num_kv_heads = kv.stop - kv.start
+        self.num_heads = cfg.num_attention_heads * self.num_kv_heads // cfg.num_key_value_heads
+        q_cols = params["layers"]["q"]["w"].shape[-1]
+        if q_cols != self.num_heads * cfg.head_dim:
+            raise ValueError(f"q has {q_cols} columns, {self.num_heads} heads of "
+                             f"{cfg.head_dim} expected (a tp rank takes shard_params' slice)")
         self.embed_tokens = _leaf(params["embed_tokens"])
         self.layers = ParamTree(q8.col_major_int8(params["layers"]))
         self.final_ln = nn.Parameter(params["final_ln"], requires_grad=False)
@@ -143,26 +162,28 @@ def _mrope_tables(cfg, inv_freq, pos3, attention_scaling, dtype):
     )
 
 
-def _layer_qkv(cfg, lp, hidden, cos, sin, act_quant=False):
-    """Norm -> q/k/v projections -> RoPE; returns [H, N, D] heads."""
+def _layer_qkv(cfg, model, lp, hidden, cos, sin, act_quant=False):
+    """Norm -> q/k/v projections -> RoPE; returns [H, N, D] heads (the
+    rank's heads under tensor parallelism)."""
     x = rms_norm(hidden, lp["input_ln"], cfg.rms_norm_eps)
     q, k, v = _shared_quant_linears(x, (lp["q"], lp["k"], lp["v"]), act_quant)
-    q = _heads(q, cfg.num_attention_heads, cfg.head_dim)
-    k = _heads(k, cfg.num_key_value_heads, cfg.head_dim)
-    v = _heads(v, cfg.num_key_value_heads, cfg.head_dim)
+    q = _heads(q, model.num_heads, cfg.head_dim)
+    k = _heads(k, model.num_kv_heads, cfg.head_dim)
+    v = _heads(v, model.num_kv_heads, cfg.head_dim)
     return rope.apply_rope(q, cos, sin), rope.apply_rope(k, cos, sin), v
 
 
-def _layer_out_mlp(cfg, lp, hidden, attn_flat, act_quant=False):
+def _layer_out_mlp(cfg, model, lp, hidden, attn_flat, act_quant=False):
     """o-projection residual + SwiGLU MLP."""
-    hidden = hidden + q8.qlinear(attn_flat, lp["o"], act_quant)
+    hidden = hidden + q8.qlinear(attn_flat, lp["o"], act_quant, model.tp)
     x2 = rms_norm(hidden, lp["post_ln"], cfg.rms_norm_eps)
     gate, up = _shared_quant_linears(x2, (lp["gate"], lp["up"]), act_quant)
-    return hidden + q8.qlinear(gate * torch.sigmoid(gate) * up, lp["down"], act_quant)
+    return hidden + q8.qlinear(gate * torch.sigmoid(gate) * up, lp["down"], act_quant, model.tp)
 
 
 def _layer(
     cfg: Qwen2VLConfig,
+    model: TextDecoder,
     inv_freq: torch.Tensor,
     attention_scaling: float,
     compress: bool,
@@ -188,7 +209,8 @@ def _layer(
     already int8. ``attn_budget`` windows the cache for the plain
     attention arms (views, no copy); K1 takes the whole buffers, since it
     reads only the tiles below ``cache_len`` and needs contiguous tensors."""
-    kv_heads, n_heads = cfg.num_key_value_heads, cfg.num_attention_heads
+    kv_heads, n_heads = cfg.num_key_value_heads, cfg.num_attention_heads  # global
+    tp = model.tp
     s = hidden.shape[0]
     ck_w, cv_w, cks_w, cvs_w = ck, cv, cks, cvs
     if attn_budget is not None and attn_budget < ck.shape[1]:
@@ -204,7 +226,7 @@ def _layer(
     else:
         pos_layer = pos3
     cos, sin = _mrope_tables(cfg, inv_freq, pos_layer, attention_scaling, hidden.dtype)
-    q_rot, k_rot, v = _layer_qkv(cfg, lp, hidden, cos, sin, act_quant)
+    q_rot, k_rot, v = _layer_qkv(cfg, model, lp, hidden, cos, sin, act_quant)
 
     if compress:
         if reforge:  # PivotKV scores de-rotated q/k (bf16 round trip)
@@ -236,8 +258,10 @@ def _layer(
             valid_len, cks, cvs, None if kq is None else (ksc, vsc),
         )
         if compress:
-            sums = pivot_scores.pivot_score_sums(q_s, k_s, valid_len)
-            fused_scores = sums.sum(dim=0) / (kv_heads * (n_heads // kv_heads))
+            sums = pivot_scores.pivot_score_sums(q_s, k_s, valid_len).sum(dim=0)
+            if tp is not None:  # the rank's KV heads' sum -> all heads'
+                tp.all_reduce(sums, "sum")
+            fused_scores = sums / (kv_heads * (n_heads // kv_heads))
     elif attn_impl == "flash":
         attn_out = attn_ops.flash_chunk_attention(
             q_rot, ck_w, cv_w, cache_len, k_rot, v, valid_len, k_scale=cks_w, v_scale=cvs_w
@@ -246,7 +270,7 @@ def _layer(
         attn_out = attn_ops.chunk_prefill_attention(
             q_rot, ck_w, cv_w, cache_len, k_rot, v, valid_len, cks_w, cvs_w
         )
-    hidden = _layer_out_mlp(cfg, lp, hidden, _unheads(attn_out), act_quant)
+    hidden = _layer_out_mlp(cfg, model, lp, hidden, _unheads(attn_out), act_quant)
 
     if not compress:
         if kq is not None:
@@ -259,7 +283,9 @@ def _layer(
             scores = torch.where(keypatch, 1.0, scores)
         scores = torch.where(valid_mask, scores, pivotkv.NEG_INF)
     else:
-        scores = pivotkv.eviction_scores(q_s, k_s, valid_mask, keypatch)
+        scores = pivotkv.eviction_scores(q_s, k_s, valid_mask, keypatch, tp)
+    if tp is not None:
+        tp.note(scores)
     perm, kept_mask = pivotkv.keep_partition(scores, keep_len)
     # per-key scales: quantize-then-permute == permute-then-quantize
     v_block, vs_block = (v[:, perm], None) if vq is None else (vq[:, perm], vsc[:, perm])
@@ -316,7 +342,7 @@ def decoder_chunk(
     quantized = cache.quantized
     for i in range(cfg.num_hidden_layers):
         hidden, blocks = _layer(
-            cfg, inv_freq, attention_scaling, compress, reforge, attn_impl, act_quant,
+            cfg, model, inv_freq, attention_scaling, compress, reforge, attn_impl, act_quant,
             model.layers.layer(i), hidden, pos3, valid_len, keypatch, keep_len,
             cache.length, cache.k[i], cache.v[i], cache.pos[i],
             cache.k_scale[i] if quantized else None, cache.v_scale[i] if quantized else None,
@@ -330,13 +356,14 @@ def decoder_chunk(
 def _head_logits(model: TextDecoder, h: torch.Tensor) -> torch.Tensor:
     """LM head on normed hidden states [.., d] -> fp32 [.., V]. An int8 head
     is a weight-only linear; a tied int8 embedding's per-row scale becomes
-    a per-logit scale."""
+    a per-logit scale. Under TP an untied head holds the rank's vocabulary
+    columns: the logits are all-gathered (a tied one is replicated)."""
     head = model.lm_head
-    if isinstance(head, ParamTree):
-        logits = q8.qlinear(h, head.as_dict())
-    elif head is not None:
-        logits = h @ head
-    elif isinstance(model.embed_tokens, ParamTree):
+    if head is not None:
+        logits = q8.qlinear(h, head.as_dict()) if isinstance(head, ParamTree) else h @ head
+        logits = logits.to(torch.float32)
+        return logits if model.tp is None else model.tp.all_gather(logits, dim=-1)
+    if isinstance(model.embed_tokens, ParamTree):
         e = model.embed_tokens
         logits = (h @ e.w.T.to(h.dtype)) * e.scale.to(h.dtype)
     else:
@@ -389,7 +416,7 @@ def decode_step_batch(
         lp = model.layers.layer(i)
         pos3 = torch.stack([base_t[i] + gap_filled, pos_rest, pos_rest]).to(torch.int32)
         cos, sin = _mrope_tables(cfg, inv_freq, pos3, attention_scaling, hidden.dtype)
-        q_rot, k_rot, v = _layer_qkv(cfg, lp, hidden, cos, sin)  # [H, B, D]
+        q_rot, k_rot, v = _layer_qkv(cfg, model, lp, hidden, cos, sin)  # [H, B, D]
         k_b, v_b = k_rot.transpose(0, 1), v.transpose(0, 1)  # [B, KV, D]
         attn = attn_ops.decode_attention_batch_gapped(
             q_rot.transpose(0, 1), k_all[i], v_all[i], final_len, gap_start,
@@ -397,7 +424,7 @@ def decode_step_batch(
             None if ks_all is None else ks_all[i], None if vs_all is None else vs_all[i],
             dec_start=dec_start, impl=impl,
         )  # [B, H, D]
-        hidden = _layer_out_mlp(cfg, lp, hidden, attn.reshape(b, -1))
+        hidden = _layer_out_mlp(cfg, model, lp, hidden, attn.reshape(b, -1))
         k_blocks.append(k_b)
         v_blocks.append(v_b)
     return hidden, torch.stack(k_blocks), torch.stack(v_blocks)

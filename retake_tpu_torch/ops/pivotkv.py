@@ -27,8 +27,12 @@ def eviction_scores(
     key: torch.Tensor,  # [num_kv_heads, S, D]
     valid_mask: torch.Tensor,  # [S] bool — True for real (non-padding) tokens
     keypatch_mask: torch.Tensor | None,  # [S] bool or None
+    tp=None,  # a TensorParallel handle: query / key hold the rank's heads
 ) -> torch.Tensor:
-    """Per-key attention-mass scores, float32 [S]; padding keys get -inf."""
+    """Per-key attention-mass scores, float32 [S]; padding keys get -inf.
+    Under tensor parallelism the mean over KV heads is the all-reduced sum
+    of the rank's per-KV-head means over the global KV head count, as GSPMD
+    reduces the JAX function, so every rank gets the same scores."""
     num_heads, s, head_dim = query.shape
     num_kv_heads = key.shape[0]
     group = num_heads // num_kv_heads
@@ -40,7 +44,10 @@ def eviction_scores(
     probs = torch.softmax(logits, dim=-1)
     probs = torch.where(valid_mask[None, None, :, None], probs, 0.0)
     scores = probs.sum(dim=2)  # [kv, group, S] — sum over queries
-    scores = scores.mean(dim=1).mean(dim=0)  # [S]
+    if tp is None:
+        scores = scores.mean(dim=1).mean(dim=0)  # [S]
+    else:
+        scores = tp.all_reduce(scores.mean(dim=1).sum(dim=0), "sum") / (num_kv_heads * tp.size)
     if keypatch_mask is not None:
         scores = torch.where(keypatch_mask, 1.0, scores)
     return torch.where(valid_mask, scores, NEG_INF)

@@ -35,13 +35,17 @@ _VIT_BLOCK_KEYS = ("qkv", "proj", "fc1", "fc2")
 _INT_MM_ROWS = 32  # CUDA row counts are padded to a multiple of this
 
 
-def _symmetric(x: torch.Tensor, dim: int):
-    """(int8 values, fp32 scale with ``dim`` kept) of ``x`` reduced over ``dim``."""
+def _symmetric(x: torch.Tensor, dim: int, amax=None):
+    """(int8 values, fp32 scale with ``dim`` kept) of ``x`` reduced over
+    ``dim``; ``amax``: the fp32 absmax over ``dim`` (kept), if the caller
+    has it (a row split across ranks)."""
     x32 = x.to(torch.float32)
     # divide by a tensor on x's device: PyTorch's CUDA division by a Python
     # or CPU scalar multiplies by its reciprocal, one ulp off IEEE division
     d127 = torch.full((), 127.0, dtype=torch.float32, device=x.device)
-    scale = torch.clamp(x32.abs().amax(dim=dim, keepdim=True), min=1e-8) / d127
+    if amax is None:
+        amax = x32.abs().amax(dim=dim, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / d127
     if x32 is x:
         x32 = x32.clone()
     q = x32.div_(scale).round_().clamp_(-127, 127).to(torch.int8)
@@ -72,39 +76,62 @@ def quantize_acts(x: torch.Tensor):
     return _symmetric(x, -1)
 
 
-def int8_matmul_prequant(xq, xs, w_q, w_scale, dtype) -> torch.Tensor:
-    """int8 x int8 -> int32 over pre-quantized activations (so q/k/v or
-    gate/up share one activation quantization), dequantized to ``dtype``."""
+def _int8_acc(xq, w_q) -> torch.Tensor:
+    """The exact int32 product of int8 activations [.., k] and weights [k, n]."""
     lead, k = xq.shape[:-1], xq.shape[-1]
     x2 = xq.reshape(-1, k)
     m = x2.shape[0]
     if x2.is_cuda and m % _INT_MM_ROWS:  # zero rows give zero sums: exact
         x2 = torch.nn.functional.pad(x2, (0, 0, 0, -m % _INT_MM_ROWS))
-    acc = torch._int_mm(x2.contiguous(), w_q)[:m].reshape(*lead, -1)
-    return (acc.to(torch.float32) * xs * w_scale).to(dtype)
+    return torch._int_mm(x2.contiguous(), w_q)[:m].reshape(*lead, -1)
 
 
-def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+def int8_matmul_prequant(xq, xs, w_q, w_scale, dtype) -> torch.Tensor:
+    """int8 x int8 -> int32 over pre-quantized activations (so q/k/v or
+    gate/up share one activation quantization), dequantized to ``dtype``."""
+    return (_int8_acc(xq, w_q).to(torch.float32) * xs * w_scale).to(dtype)
+
+
+def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, tp=None) -> torch.Tensor:
     """W8A8 linear: dynamic per-token quantization of x, int8 product,
-    dequantize. The int32 sum is exact; the loss is the 8-bit rounding of x."""
-    xq, xs = quantize_acts(x)
-    return int8_matmul_prequant(xq, xs, w_q, w_scale, x.dtype)
+    dequantize. The int32 sum is exact; the loss is the 8-bit rounding of x.
+    ``tp``: row-parallel under tensor parallelism (``qlinear``): the row's
+    absmax is all-reduced with MAX before quantizing and the int32
+    accumulators are summed before dequantizing, so the result is the
+    unsharded one bit for bit."""
+    amax = None
+    if tp is not None:
+        amax = tp.all_reduce(x.to(torch.float32).abs().amax(dim=-1, keepdim=True), "max")
+    xq, xs = _symmetric(x, -1, amax)
+    return (_summed(_int8_acc(xq, w_q), tp).to(torch.float32) * xs * w_scale).to(x.dtype)
 
 
-def qlinear(x: torch.Tensor, p: dict, act_int8: bool = False, bias_key: str = "b"):
+def qlinear(x: torch.Tensor, p: dict, act_int8: bool = False, tp=None, bias_key: str = "b"):
     """Linear over a ``{'w'[, 'scale'][, bias]}`` dict: a plain product for
     float weights; weight-only dequant for int8 weights; W8A8 with
-    ``act_int8`` (int8 weights required)."""
+    ``act_int8`` (int8 weights required).
+
+    ``tp``: a row-parallel linear (o, down) under tensor parallelism
+    (``parallel/mesh.py``): ``x`` holds this rank's slice of the input
+    features and ``p['w']`` the matching rows; the partial products are
+    summed over the group before the replicated scale and bias apply. W8A8
+    is bit-identical to one device (``int8_linear``); the weight-only and
+    float forms sum rounded partial products, which rounds differently
+    from one device."""
     w = p["w"]
-    if "scale" in p:
-        if act_int8:
-            y = int8_linear(x, w, p["scale"])
-        else:
-            y = (x @ w.to(x.dtype)) * p["scale"].to(x.dtype)
+    if "scale" in p and act_int8:
+        y = int8_linear(x, w, p["scale"], tp)
+    elif "scale" in p:
+        y = _summed(x @ w.to(x.dtype), tp) * p["scale"].to(x.dtype)
     else:
-        y = x @ w
+        y = _summed(x @ w, tp)
     b = p.get(bias_key)
     return y if b is None else y + b
+
+
+def _summed(y: torch.Tensor, tp) -> torch.Tensor:
+    """``y`` summed over the ``tp`` group (as it is without one)."""
+    return y if tp is None else tp.all_reduce(y, "sum")
 
 
 def col_major_int8(tree: dict) -> dict:

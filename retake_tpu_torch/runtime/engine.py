@@ -60,7 +60,15 @@ has it, while the ViT still runs K3 (the JAX ViT always takes its kernel);
 The plain attention arms read only a static window of the cache, a
 multiple of 8192 covering its fill (``plan_chunks``' ``bucket``; the
 decode loops' ``_attn_bucket(final_len + max_new_tokens)``), as the JAX
-engine does. Not ported yet: tensor parallelism.
+engine does.
+
+Tensor parallelism (``tp=``, the JAX engine's ``cache_sharding=``; see
+``parallel/mesh.py``): the model holds the rank's slice of the decoder and
+the KV cache its ``KV / tp`` heads; the ViT shards the frames of every chunk
+whose frame count divides ``tp`` (the JAX ``_vit_chunk_tp``) and
+all-gathers the features. The rest of the host and device work runs
+replicated on every rank; with ``tp.check`` each request ends by comparing
+a digest of it across the ranks.
 """
 from __future__ import annotations
 
@@ -203,6 +211,34 @@ def _trim_cache(cache: cache_lib.KVCache, need: int) -> cache_lib.KVCache:
     )
 
 
+def bind_tp(model, tp, device):
+    """The engine's TP handle: the one ``model`` was built with, bound to
+    the engine's device (a group that cannot carry its tensors raises)."""
+    if tp is not model.tp:
+        raise ValueError(f"engine tp {tp} is not the model's {model.tp}: build the model "
+                         "from shard_params(params, tp) with the same handle")
+    if tp is not None:
+        tp.bind(device)
+    return tp
+
+
+def check_replicas(tp, label: str, out, features=None) -> None:
+    """Under ``tp.check``: compare across the ranks what each computed
+    replicated for one request (the vision features and keypatch mask, the
+    cache's positions and length, which carry PivotKV's choices and the
+    reforged positions, the first logits and the tokens)."""
+    if tp is None or not tp.check:
+        return
+    vals = [] if features is None else [features.embeds, features.keymask]
+    result = out.result if isinstance(out, PrefillState) else out
+    if not isinstance(out, VideoPrefix):
+        vals += [result.first_logits, result.tokens]
+    if out.cache is not None:
+        n = int(out.cache.length)
+        vals += [out.cache.pos[:, :, :n], n]
+    tp.assert_replicated(label, *vals)
+
+
 def batched_decode_impl(cfg: Qwen2VLConfig, device) -> str:
     """The batched-decode attention arm for a model on ``device``: K4
     (``"pallas"``) on CUDA when the GQA group fits the kernel, the plain
@@ -215,6 +251,8 @@ def batched_decode_impl(cfg: Qwen2VLConfig, device) -> str:
 class Qwen2VLEngine:
     """Single-request (batch 1) long-video inference engine.
 
+    ``tp``: the ``TensorParallel`` handle ``model`` was sharded for (one
+    rank of a tensor-parallel group; every rank makes the same calls).
     ``noise_fn`` (None: ``sampling.gumbel_noise``) is the sampler's noise
     source under ``do_sample``; tests set it to feed known draws."""
 
@@ -224,10 +262,12 @@ class Qwen2VLEngine:
         model: Qwen2VLModel,
         retake: RetakeConfig,
         device,
+        tp=None,
     ):
         self.device = device_lib.resolve(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model is on {model.device}, engine on {self.device}")
+        self.tp = bind_tp(model, tp, self.device)
         if retake.scaling_factor:
             cfg = cfg.with_yarn(retake.scaling_factor)
         impl = retake.attn_implementation
@@ -261,7 +301,7 @@ class Qwen2VLEngine:
         patches = torch.as_tensor(pixel_values_videos).to(self.device, visual.dtype)
         aq = self.act_quant and visual.int8
         if t <= fcs:
-            return visual(patches, t, h, w, self.vit_impl, aq)
+            return self._vit(patches, t, h, w, aq)
         hw = h * w
         merged_per_t = hw // self.cfg.vision.spatial_merge_size**2
         out_buf = None
@@ -270,7 +310,7 @@ class Qwen2VLEngine:
             chunk = patches[i * hw : (i + tc) * hw]
             if tc < fcs:  # pad the tail to the common shape; frames are independent
                 chunk = torch.nn.functional.pad(chunk, (0, 0, 0, (fcs - tc) * hw))
-            out = visual(chunk, fcs, h, w, self.vit_impl, aq)
+            out = self._vit(chunk, fcs, h, w, aq)
             if out_buf is None:
                 out_buf = torch.empty(
                     (t * merged_per_t, out.shape[-1]), dtype=out.dtype, device=out.device
@@ -279,6 +319,18 @@ class Qwen2VLEngine:
             if on_dispatch is not None:
                 on_dispatch()
         return out_buf
+
+    def _vit(self, patches, grid_t: int, h: int, w: int, aq: bool) -> torch.Tensor:
+        """The ViT over one chunk of ``grid_t`` frames. Under TP, when
+        ``grid_t`` divides over the ranks, each runs K3 on its ``grid_t /
+        tp`` frames and the merged outputs are all-gathered in frame order
+        (frames attend only within themselves: no other collective)."""
+        visual, tp = self.model.visual, self.tp
+        if tp is None or grid_t % tp.size:
+            return visual(patches, grid_t, h, w, self.vit_impl, aq)
+        per, hw = grid_t // tp.size, h * w
+        mine = patches[tp.rank * per * hw : (tp.rank + 1) * per * hw]
+        return tp.all_gather(visual(mine, per, h, w, self.vit_impl, aq))
 
     def run_vision_images(self, pixel_values, image_grid_thw) -> torch.Tensor:
         """ViT over still images (reference qwen2_vl.py:593-595): each image
@@ -393,6 +445,8 @@ class Qwen2VLEngine:
         )
         for res, m in zip(results, req_max):
             res.tokens = res.tokens[:m]
+        if self.tp is not None:
+            self.tp.assert_replicated("generate_batch", *[r.tokens for r in results])
         return results
 
     def generate(
@@ -486,6 +540,7 @@ class Qwen2VLEngine:
         )
         if _capture_reserve is not None:
             out.features = video_features  # metadata and the fallback artifact
+        check_replicas(self.tp, "generate", out, vf)
         return out
 
     def encode_prefix(
@@ -800,8 +855,8 @@ def prefill_and_decode(
     if prefix is not None:  # the snapshot serves the video's other questions
         kv = _fork_cache(prefix.cache)
     else:
-        kv = cache_lib.init_cache(
-            cfg.num_hidden_layers, cfg.num_key_value_heads, budget, cfg.head_dim,
+        kv = cache_lib.init_cache(  # the rank's KV heads under tensor parallelism
+            cfg.num_hidden_layers, model.num_kv_heads, budget, cfg.head_dim,
             dtype=embeds.dtype, device=device, quantized=rt.kv_cache_dtype == "int8",
         )
 

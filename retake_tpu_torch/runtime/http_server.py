@@ -67,6 +67,9 @@ class RetakeHTTPServer:
         max_queue: Optional[int] = None,  # submit backlog bound (503 past it)
         **server_kwargs,
     ):
+        if getattr(engine, "tp", None) is not None:
+            raise NotImplementedError("the HTTP front end under tensor parallelism: request "
+                                      "payloads do not travel between the ranks yet")
         self.max_queue = max_queue
         self.engine = engine
         self.processor = processor

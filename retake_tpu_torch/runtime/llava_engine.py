@@ -13,6 +13,11 @@ The reference's keypatch quirk is kept: the DPSelect keypatch mask is
 computed on the un-pooled 27x27 patch grid ([tgt * 729] flags) but laid
 onto the pooled token stream (tgt * 196 + 1 tokens) by truncation, as its
 ``masked_scatter`` does (reference llava_onevision.py:485-486).
+
+Tensor parallelism (``tp=``, the JAX engine's ``cache_sharding=``): the
+decoder runs sharded through the Qwen engine's core, and SigLIP shards the
+frames of every chunk whose frame count divides ``tp`` (the JAX
+``_siglip_chunk_tp``), the features all-gathered in frame order.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from retake_tpu_torch.runtime.engine import (
     PrefixMismatch,
     VideoFeatures,
     batched_decode_impl,
+    bind_tp,
+    check_replicas,
     decode_batch,
     prefill_and_decode,
 )
@@ -44,17 +51,19 @@ PROJECT_CHUNK = 64  # frames projected and pooled at a time
 
 class LlavaOnevisionEngine:
     """Single-request long-video engine for the LLaVA-OneVision family.
-    ``model_or_params``: a ``LlavaOnevisionModel`` or its parameter tree.
+    ``model_or_params``: a ``LlavaOnevisionModel`` or its parameter tree
+    (under ``tp``, the rank's ``shard_params`` slice). ``tp`` and
     ``noise_fn`` as in ``Qwen2VLEngine``."""
 
     def __init__(self, cfg: LlavaOnevisionConfig, model_or_params, retake: RetakeConfig,
-                 device="cuda"):
+                 device="cuda", tp=None):
         self.device = device_lib.resolve(device)
         model = model_or_params
         if not isinstance(model, LlavaOnevisionModel):
-            model = LlavaOnevisionModel(cfg, model_or_params)
+            model = LlavaOnevisionModel(cfg, model_or_params, tp)
         if model.device.type != self.device.type:
             raise ValueError(f"model is on {model.device}, engine on {self.device}")
+        self.tp = bind_tp(model, tp, self.device)
         if retake.scaling_factor:
             cfg = cfg.with_yarn(retake.scaling_factor)
         self.cfg = cfg
@@ -78,6 +87,17 @@ class LlavaOnevisionEngine:
         patches = siglip.patchify_frames(frames_u8, self.cfg.vision, vt.patch_embed.w.dtype)
         return siglip.siglip_tower(vt, self.cfg.vision, patches, self._vision_aq())
 
+    def _tower_chunk(self, frames_u8: torch.Tensor) -> torch.Tensor:
+        """SigLIP over one chunk of frames (on the host or the device).
+        Under TP, when the frame count divides over the ranks, each runs its
+        share and the features are all-gathered in frame order."""
+        tp, t = self.tp, frames_u8.shape[0]
+        if tp is None or t % tp.size:
+            return self._tower(frames_u8.to(self.device))
+        per = t // tp.size
+        mine = frames_u8[tp.rank * per : (tp.rank + 1) * per].to(self.device)
+        return tp.all_gather(self._tower(mine))
+
     def run_vision(self, frames, on_dispatch=None) -> torch.Tensor:
         """frames [T, 384, 384, 3] uint8 -> SigLIP features [T, 729, 1152]
         in chunks of ``frame_chunk_size`` frames (reference
@@ -91,7 +111,7 @@ class LlavaOnevisionEngine:
         fcs = self.retake.frame_chunk_size or t
         out = None
         for i in range(0, t, fcs):
-            feats = self._tower(frames[i : i + fcs].to(self.device))
+            feats = self._tower_chunk(frames[i : i + fcs])
             if out is None:
                 out = torch.empty((t,) + feats.shape[1:], dtype=feats.dtype, device=self.device)
             out[i : i + feats.shape[0]] = feats
@@ -269,6 +289,8 @@ class LlavaOnevisionEngine:
         )
         if _capture_reserve is not None:
             out.features = video_features  # metadata and the fallback artifact
+        check_replicas(self.tp, "generate", out,
+                       prefix.features if prefix is not None else video_features)
         return out
 
     def encode_prefix(self, input_ids, pixel_values_videos=None, video_grid_thw=None,
@@ -305,6 +327,8 @@ class LlavaOnevisionEngine:
         )
         for res, m in zip(results, req_max):
             res.tokens = res.tokens[:m]
+        if self.tp is not None:
+            self.tp.assert_replicated("generate_batch", *[r.tokens for r in results])
         return results
 
 

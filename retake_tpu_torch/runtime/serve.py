@@ -59,6 +59,16 @@ thread and get a ``concurrent.futures.Future``. Grad mode and the current
 CUDA stream are per thread in PyTorch: the worker runs under
 ``torch.no_grad`` on its own current stream, the device's default one, and
 every device operation of the server is issued there in program order.
+
+Tensor parallelism (an engine built with ``tp=``): every rank runs ``run``
+with the same requests, and the gap-layout cache holds the rank's KV heads.
+The loop decides by the wall clock (arrivals, deadlines) and by the
+``on_tokens`` verdicts, which two processes would read differently and then
+hang in a collective. So rank 0 alone reads the clock and calls
+``on_tokens``, and broadcasts each decision (which request arrives, whether
+one is cancelled) as a few ints; the other ranks act on the broadcast.
+Online mode would have to carry the requests themselves between the ranks:
+``start_online`` raises under TP.
 """
 
 from __future__ import annotations
@@ -85,6 +95,7 @@ from retake_tpu_torch.runtime.engine import (
 from retake_tpu_torch.runtime.sampling import Sampler
 
 GAP_ALIGN = 2048  # the shared bucket (prefill bucket + gap) is a multiple of this
+_EVENTS = ("end", "wait", "req")  # the source's events, by their code under TP
 
 
 def _dev(x: np.ndarray, device) -> torch.Tensor:
@@ -181,6 +192,7 @@ class ContinuousServer:
         rt = engine.retake
         self.sampler = Sampler.from_config(rt, getattr(engine, "noise_fn", None))
         self.engine = engine
+        self.tp = getattr(engine, "tp", None)
         self.cfg = getattr(engine.cfg, "text", engine.cfg)  # LLaVA: its text decoder
         self.vision_cache_slots = int(vision_cache_slots)
         self._vision_cache: Dict[str, object] = {}  # video_key -> VideoFeatures
@@ -392,8 +404,35 @@ class ContinuousServer:
             state["next"] = i + 1
             return "req", (requests[i], i, on_tokens, arrivals[i])
 
+        if self.tp is not None:
+            source = self._led_source(source, requests, arrivals)
         self._serve_loop(source, lambda res: results.__setitem__(res.request_id, res))
+        if self.tp is not None:
+            self.tp.assert_replicated("server", *[r.tokens for r in results])
         return results
+
+    def _led_source(self, source, requests, arrivals):
+        """Under TP: rank 0 runs ``source`` and broadcasts each event as
+        (event code, request index); the other ranks take the request from
+        their own list, without ``on_tokens`` (rank 0 streams)."""
+        tp = self.tp
+
+        def led(now, idle):
+            kind, payload = source(now, idle) if tp.rank == 0 else ("end", None)
+            code = (_EVENTS.index(kind), -1 if payload is None else payload[1])
+            code = tp.broadcast_ints(code)
+            if tp.rank == 0:
+                return kind, payload
+            kind, i = _EVENTS[code[0]], code[1]
+            return (kind, None) if kind != "req" else ("req", (requests[i], i, None, arrivals[i]))
+
+        return led
+
+    def _lead(self, flags):
+        """Rank 0's decisions (bools) on every rank under TP; as given at tp = 1."""
+        if self.tp is None:
+            return list(flags)
+        return [bool(x) for x in self.tp.broadcast_ints([int(f) for f in flags] or [0])][: len(flags)]
 
     def _hook(self):
         return self._on_prefill_dispatch if self.interleave else None
@@ -501,7 +540,12 @@ class ContinuousServer:
         in ``run``, cancel on False included). ``max_queue`` bounds the
         not-yet-admitted backlog: ``submit`` raises ``queue.Full`` past it.
         A request's ``deadline_s`` counts from its submission. One failed
-        admission fails only its request (``ServeResult.error``)."""
+        admission fails only its request (``ServeResult.error``). Not under
+        tensor parallelism: the requests would have to travel between the
+        ranks (``NotImplementedError``)."""
+        if self.tp is not None:
+            raise NotImplementedError("online serving under tensor parallelism: request "
+                                      "payloads do not travel between the ranks yet")
         return OnlineHandle(self, max_queue=max_queue)
 
     def _serve_loop(self, source, emit_result, isolate_errors: bool = False):
@@ -538,7 +582,7 @@ class ContinuousServer:
                 req = dict(req)
                 deadline = req.pop("deadline_s", None)
                 deadline = None if deadline is None else arrival + float(deadline)
-                if deadline is not None and now() > deadline:
+                if deadline is not None and self._lead([now() > deadline])[0]:
                     self.stats["requests_rejected_deadline"] += 1
                     emit_result(ServeResult(
                         request_id=rid, tokens=np.zeros(0, np.int64), arrival_s=arrival,
@@ -582,9 +626,10 @@ class ContinuousServer:
                 slot_meta[slot] = dict(arrival=arrival, prefill_start=t_pf,
                                        first_token=now(), on_tokens=cb, deadline=deadline)
                 ret = cb(rid, [int(st.first_token_host)]) if cb is not None else None
+                cancel = self._lead([ret is False])[0]
                 if self.done[slot]:  # EOS at the first token (wins over a cancel)
                     finish(slot)
-                elif ret is False:  # cancelled at the first token
+                elif cancel:  # cancelled at the first token
                     finish(slot, cancelled=True)
 
         def finish(slot, cancelled=False):
@@ -604,16 +649,18 @@ class ContinuousServer:
 
         def drain_staged(keep_last: int = 0):
             """Harvest staged segment tokens in dispatch order: extend each
-            live slot's stream, finish at EOS / budget / deadline / cancel."""
+            live slot's stream, finish at EOS / budget / deadline / cancel
+            (the cancels are rank 0's under TP)."""
             while len(self.staged) > keep_last:
                 toks = self.staged.pop(0).cpu().numpy()  # [seg, B]
+                ends = {}  # slot -> finished (stream complete), cancel wanted
                 for slot in list(slot_req):
                     buf = slot_tokens[slot]
                     cb = slot_meta[slot]["on_tokens"]
                     dl = slot_meta[slot]["deadline"]
                     room = int(self.slot_max[slot]) - len(buf)
                     if room <= 0:
-                        finish(slot)
+                        ends[slot] = (True, False)
                         continue
                     col = toks[:room, slot]
                     eos = np.flatnonzero(col == self.cfg.eos_token_id)
@@ -622,11 +669,12 @@ class ContinuousServer:
                     buf.extend(col.tolist())
                     finished = bool(len(eos)) or len(buf) >= int(self.slot_max[slot])
                     ret = cb(slot_req[slot], col.tolist()) if cb is not None and len(col) else None
+                    ends[slot] = (finished, (dl is not None and now() > dl) or ret is False)
+                cancels = self._lead([c for _, c in ends.values()])
+                for (slot, (finished, _)), cancel in zip(ends.items(), cancels):
                     if finished:  # a full stream wins over a same-segment cancel
                         finish(slot)
-                    elif dl is not None and now() > dl:
-                        finish(slot, cancelled=True)
-                    elif ret is False:
+                    elif cancel:
                         finish(slot, cancelled=True)
 
         self._slot_req = slot_req  # the prefill hook reads these

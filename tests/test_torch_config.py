@@ -174,7 +174,7 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import retake_tpu_torch.runtime.http_server, retake_tpu_torch.tools.k2_timing\n"
         "import retake_tpu_torch.eval.infer_eval, retake_tpu_torch.tools.quantize_checkpoint\n"
         "import retake_tpu_torch.eval.synthetic, retake_tpu_torch.data.datasets\n"
-        "import retake_tpu_torch.data.scorers\n"
+        "import retake_tpu_torch.data.scorers, retake_tpu_torch.parallel\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'retake_tpu' or m.startswith('retake_tpu.')]\n"
         "assert not bad, bad\n"

@@ -150,20 +150,58 @@ def test_flash_prefill_kernel_matches_plain_at_llava_shapes(cuda, cache_len, val
     assert err <= _bf16_tol(want), (err, _bf16_tol(want))
 
 
+# K1 at a tensor-parallel rank's heads at tp = 2 (KV, G, S, int8 cache,
+# cache_len, valid_len) over a 40960-key cache: LLaVA-Video-7B's chunk at
+# 14/2 heads, the 2B's at 6/1, the 7B serving config's (int8) at 14/2
+K1_TP_CASES = [(2, 7, 6272, False, 0, 6272), (2, 7, 6272, False, 20000, 6272),
+               (2, 7, 6272, False, 20000, 5967), (1, 6, 2304, False, 0, 2304),
+               (1, 6, 2304, False, 20000, 1999), (2, 7, 2304, True, 0, 2304),
+               (2, 7, 2304, True, 20000, 2304), (2, 7, 2304, True, 20000, 1999)]
+
+
+@pytest.mark.parametrize("kv,g,s,int8,cache_len,valid_len", K1_TP_CASES)
+def test_flash_prefill_kernel_matches_plain_at_tp_rank_shapes(cuda, kv, g, s, int8, cache_len,
+                                                              valid_len):
+    # the tolerance of test_flash_prefill_kernel_matches_plain
+    rng = np.random.default_rng(kv * g + s + cache_len + valid_len)
+    d, budget = 128, 40960
+    q = _bf16(rng, (kv * g, s, d), cuda)
+    cl, vl = _i32(cache_len, cuda), _i32(valid_len, cuda)
+    if int8:
+        (kc, kcs), (vc, vcs) = _int8(rng, (kv, budget, d), cuda), _int8(rng, (kv, budget, d), cuda)
+        (kn, kns), (vn, vns) = _int8(rng, (kv, s, d), cuda), _int8(rng, (kv, s, d), cuda)
+        args = (q, kc, vc, cl, kn, vn, vl, kcs, vcs, (kns, vns))
+    else:
+        kc, vc = _bf16(rng, (kv, budget, d), cuda), _bf16(rng, (kv, budget, d), cuda)
+        kn, vn = _bf16(rng, (kv, s, d), cuda), _bf16(rng, (kv, s, d), cuda)
+        args = (q, kc, vc, cl, kn, vn, vl)
+    got = flash_prefill.flash_prefill_attention(*args)
+    again = flash_prefill.flash_prefill_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = (flash_prefill.flash_prefill_attention_plain(*args) if int8
+            else k1_plain_per_kv_head(*args, cache_len))
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _bf16_tol(want), (err, _bf16_tol(want))
+
+
 # K2 cases (KV, G, S, valid_len, D): 2B (12/2) and 7B (28/4) heads at the
 # main path's S = 2304, full and short; D = 64; G = 1 and G = 16 (two heads
 # per CTA of an 8-CTA cluster); S below one 64-row tile (40); S no multiple
 # of 64 or 128 (300) with valid_len 257; valid_len = 1; the prompt-guided
 # block (2304 + 49 rows, full and as a short last chunk of 1999 + 49); the
 # LLaVA-Video-7B chunk (28/4 heads, 6272 rows: full, short, and the one-row
-# chunk of the newline token)
+# chunk of the newline token); a tensor-parallel rank's heads at tp = 2: 7B
+# and LLaVA-Video-7B (14/2) at S = 2304 and 6272, 2B (6/1) at 2304
 K2_CASES = [(2, 6, 2304, 2304, 128), (2, 6, 2304, 1999, 128), (4, 7, 2304, 2304, 128),
             (4, 7, 2304, 1999, 128), (2, 6, 300, 257, 64), (2, 6, 2304, 1999, 64),
             (3, 1, 300, 257, 128), (2, 16, 300, 257, 128), (1, 16, 2304, 1999, 64),
             (2, 6, 40, 40, 128), (2, 6, 40, 17, 64), (2, 6, 300, 257, 128),
             (2, 6, 256, 256, 128), (2, 6, 300, 1, 128), (4, 7, 40, 1, 64),
             (2, 6, 2353, 2353, 128), (2, 6, 2353, 2048, 128), (4, 7, 2353, 2048, 128),
-            (4, 7, 6272, 6272, 128), (4, 7, 6272, 5000, 128), (4, 7, 6272, 1, 128)]
+            (4, 7, 6272, 6272, 128), (4, 7, 6272, 5000, 128), (4, 7, 6272, 1, 128),
+            (2, 7, 2304, 2304, 128), (2, 7, 2304, 1999, 128), (2, 7, 6272, 6272, 128),
+            (2, 7, 6272, 5967, 128), (1, 6, 2304, 2304, 128), (1, 6, 2304, 1999, 128)]
 
 
 @pytest.mark.parametrize("kv,g,s,valid_len,d", K2_CASES)
@@ -252,6 +290,10 @@ K4_CASES = [
     (2, 2, 6, 43008, [0, 0], [40960, 40970], 41000, 128),
     (2, 2, 6, 2048, [1500, 0], [1600, 1600], 1600, 64),
     (1, 4, 16, 1111, [1111], [1111], 1111, 64),
+    # a tensor-parallel rank's heads at tp = 2 over the serving bucket: 2B
+    # (G 6, KV 1) and LLaVA-Video-7B (G 7, KV 2)
+    (4, 1, 6, 43008, [32002, 18498, 4674, 0], [40960, 40976, 40992, 40960], 41024, 128),
+    (4, 2, 7, 43008, [32002, 18498, 4674, 20000], [40960, 40976, 40992, 40960], 41024, 128),
 ]
 
 
@@ -445,6 +487,8 @@ K4_INT8_CASES = [
     (2, 2, 7, 300, [250, 0], [280, 290], 299, 64),
     (2, 4, 7, 43008, [0, 0], [40960, 40970], 41000, 128),
     (2, 2, 6, 2048, [1500, 0], [1600, 1600], 1600, 128),
+    # the 7B serving shape at tp = 2: a rank's G 7 over KV 2
+    (4, 2, 7, 43008, [32002, 18498, 4674, 20000], [40960, 40976, 40992, 40960], 41024, 128),
 ]
 
 
