@@ -91,8 +91,16 @@ Phases (each prints; any failure raises and exits non-zero):
      the three files); a resume that runs nothing; the CLI as two processes
      joined by torch.distributed (gloo) on the card over 2 of the videos;
      reuse of each video's features and prefix, token-exact against the
-     one-process run; the host pipeline (frame decode, patchify) at 2048
-     frames
+     one-process run; the host pipeline at 2048 frames: the native
+     library's state (its patchify half must build), which path decoded the
+     frames, the native patchify beside the numpy path
+ 24. tensor parallelism, two rank processes of this script (gloo on one
+     card, NCCL on two): (a) 7B in the serving config at ``--frames``, (b)
+     three of phase 11's requests through ``ContinuousServer.run``, (d) the
+     same requests online from two threads with a keyed video asked twice,
+     an expired and a malformed request, then the HTTP front end (miss,
+     prefix hit blocking and streamed), (c) LLaVA-Video-7B at 64 frames and
+     ``generate_batch``; the ranks bit-equal, held to phases 10, 11 and 22
 
 The last two stdout lines are the kernels record and
 ``{"ok": true, "device": {...}}``; before them, the card's name and power
@@ -268,6 +276,9 @@ SERVING_YAML = "configs/qwen2_vl/retake_qwen2-vl_videomme_tpu_serving.yaml"
 EVAL_VIDEOS, EVAL_FRAMES, EVAL_QUESTIONS, EVAL_WORKERS = 4, 512, 2, 2
 MULTI_VIDEOS = 2
 HOST_FRAMES = EVAL_VIDEOS * EVAL_FRAMES
+# the native patchify against the numpy path (tests/test_native.py's bound:
+# the native pass folds 1/255 and 1/std into one factor, ~5e-7 apart on the CPU)
+NATIVE_PATCH_TOL = 1e-5
 # phase 24: tensor parallelism over TP_SIZE ranks, processes spawned from
 # this script (gloo on one card, NCCL on a card each when the machine has
 # TP_SIZE), each rank on its half of the heads. The local shapes its
@@ -300,6 +311,16 @@ TP_MIN_AGREEMENT = 0.7
 # Tighter than phase 10's E2E7_REL_LOGIT_TOL, which bounds kernel vs plain.
 TP_REL_LOGIT_TOL = 1e-3
 TP_TIMEOUT_S = 600.0  # both ranks' wall, start-up included
+# (d): online serving and HTTP on the ranks' 7B engines. Rank 0 submits
+# (b)'s requests again from two threads at their arrival times, a 64-frame
+# keyed video asked twice (a miss, then a vision-feature and a prefix hit),
+# a request with deadline_s 0 and a malformed one; then HTTP over
+# HTTP_FRAMES JPEG frames: a miss and two prefix hits. Every request of (d)
+# decodes TP_D_TOKENS tokens, for time (host-bound TP decode is 0.27-0.46
+# s a token over gloo on one card, PERF.md); (b)'s requests are held to the
+# first TP_D_TOKENS of (b)'s streams
+TP_D_SUBMIT = [(0, 0, 0.0), (1, 1, 1.0), (0, 2, 2.0)]  # (thread, index into TP_SERVE, at s)
+TP_D_TOKENS = 8
 # reference points of earlier runs on an NVIDIA H100 80GB HBM3 at 700 W
 # (PERF.md): phase 19's "flash" TTFT at 512 frames before the attention
 # window and the "pallas" warm decode of 15 tokens
@@ -2571,24 +2592,56 @@ def run_eval_in_process(engine, processor, dataset, rt) -> tuple:
 
 def host_pipeline(host_dir: str) -> None:
     """``load_frame_dir`` and ``preprocess_video`` at HOST_FRAMES 448x252
-    frames (PIL decode, the numpy normalize + patchify): the host work of an
-    eval sample or an HTTP miss."""
+    frames, the host work of an eval sample or an HTTP miss: the native
+    library's state (its patchify half must build here; the JPEG half needs
+    libjpeg), which path decoded the frames, and ``preprocess_video``
+    through the native patchify beside the numpy path (held to each other
+    at NATIVE_PATCH_TOL)."""
+    from retake_tpu_torch import native
     from retake_tpu_torch.data import processor as proc_lib
     from retake_tpu_torch.data import video
 
+    t0 = time.perf_counter()
+    status = native.status()
+    t_build = time.perf_counter() - t0
+    log(f"[23] native host pipeline ({t_build:.2f} s to build or load): {json.dumps(status)}")
+    check(status["patchify"].startswith("built"), ("the patchify half did not build", status))
+    decoder = ("native (libjpeg + C++ NEAREST)" if status["jpeg"].startswith("built")
+               else "PIL (the JPEG half is not built here)")
     t0 = time.perf_counter()
     frames = video.load_frame_dir(host_dir, 2048, 4, 4, 448)
     t_load = time.perf_counter() - t0
     t0 = time.perf_counter()
     flat, grid = proc_lib.preprocess_video(frames)
     t_prep = time.perf_counter() - t0
+    stacked = np.stack(frames)
+    t0 = time.perf_counter()
+    native.patchify_qwen(stacked)
+    t_patch = time.perf_counter() - t0
+    del stacked
+    patchify = native.patchify_qwen
+
+    def unavailable(*a, **kw):
+        raise native.NativeUnavailable("the numpy path, for comparison")
+
+    native.patchify_qwen = unavailable
+    try:
+        t0 = time.perf_counter()
+        flat_np, grid_np = proc_lib.preprocess_video(frames)
+        t_numpy = time.perf_counter() - t0
+    finally:
+        native.patchify_qwen = patchify
+    err = max(float(np.abs(flat[i:i + 65536] - flat_np[i:i + 65536]).max())
+              for i in range(0, len(flat), 65536))
     h, w = frames[0].shape[:2]
     log(f"[23] host pipeline, {len(frames)} frames {w}x{h} on {os.cpu_count()} cores: "
-        f"load_frame_dir (PIL) {t_load:.2f} s, preprocess_video (PIL bicubic + numpy) "
-        f"{t_prep:.2f} s -> patches {tuple(flat.shape)} grid {grid}; the native pipeline is "
-        "not built on this machine (no libjpeg headers)")
-    check(len(frames) == HOST_FRAMES and grid == (HOST_FRAMES // 2, h // 14, w // 14),
-          ("host pipeline", len(frames), grid))
+        f"load_frame_dir {t_load:.2f} s, decoded by {decoder}; preprocess_video (PIL bicubic + "
+        f"native patchify) {t_prep:.2f} s, of it patchify_qwen alone {t_patch:.2f} s; the numpy "
+        f"path {t_numpy:.2f} s -> patches {tuple(flat.shape)} grid {grid}; native vs numpy "
+        f"max|diff| {err:.3e} (bound {NATIVE_PATCH_TOL})")
+    check(len(frames) == HOST_FRAMES and grid == grid_np == (HOST_FRAMES // 2, h // 14, w // 14),
+          ("host pipeline", len(frames), grid, grid_np))
+    check(err <= NATIVE_PATCH_TOL, ("native vs numpy patches", err))
 
 
 def phase_eval(cfg, dev, seed: int, hf_dir: str) -> dict:
@@ -2894,6 +2947,9 @@ def tp_rank_main(args) -> int:
         f"peak {m['peak_gib']:.2f} GiB; stats {json.dumps(server.stats)}; launches {lb}")
     check(lb["K4-int8"] == k4_want and lb["K4"] == 0 and server.stats["compactions"] >= 1
           and all(not r.cancelled for r in results), (lb, k4_want, server.stats))
+
+    # (d) online serving and the HTTP front end on the same engines
+    tp_online_http(engine, cfg7, rt7, reqs, tp, args.seed, dev, tag, measure, summary, arrays)
     del server, results, reqs, engine, model
     torch.cuda.empty_cache()
 
@@ -2955,6 +3011,238 @@ def tp_rank_main(args) -> int:
     with open(os.path.join(args.tp_out, f"rank{rank}.json"), "w") as f:
         json.dump(summary, f)
     return 0
+
+
+def _recording(server, served: dict) -> None:
+    """Record every result the server emits on this rank, by request id
+    (an instance attribute over ``_serve_loop``: followers emit nowhere)."""
+    loop = server._serve_loop
+
+    def recorded(source, emit, isolate_errors=False):
+        def both(res):
+            served[res.request_id] = res
+            emit(res)
+
+        return loop(source, both, isolate_errors)
+
+    server._serve_loop = recorded
+
+
+def _timed_sends(server, tp, sent: list) -> None:
+    """Each request's (payload bytes, seconds) as rank 0 sends it or another
+    rank receives it (instance attributes over the send and the receive)."""
+    for name in ("_send_request", "_recv_request"):
+        fn = getattr(server, name)
+
+        def timed(*a, _fn=fn):
+            b0, t0 = tp.bytes_broadcast, time.perf_counter()
+            out = _fn(*a)
+            sent.append((tp.bytes_broadcast - b0, time.perf_counter() - t0))
+            return out
+
+        setattr(server, name, timed)
+
+
+def tp_online_http(engine, cfg, rt, reqs, tp, seed, dev, tag, measure, summary, arrays):
+    """Phase 24 (d) on one rank: ``start_online`` on every rank (rank 0
+    submits, the others follow), then ``RetakeHTTPServer`` on every rank
+    (rank 0 binds 127.0.0.1). Every result each rank emits goes to
+    ``arrays`` (the parent holds the ranks bit-equal); rank 0 checks the
+    stats, the launches per admission kind, the errors, the HTTP answers,
+    and prints the bytes and seconds each request took to reach the other
+    ranks and the TTFT of a miss against a hit."""
+    import urllib.request
+
+    from retake_tpu_torch.data.processor import Qwen2VLProcessor
+    from retake_tpu_torch.eval.synthetic import write_frames
+    from retake_tpu_torch.runtime import http_server
+    from retake_tpu_torch.runtime.serve import ContinuousServer
+
+    leader, layers, depth = tp.rank == 0, cfg.num_hidden_layers, cfg.vision.depth
+    caches = dict(vision_cache_slots=1, prefix_cache_slots=1)
+    server = ContinuousServer(engine, **SERVE_KW, **caches)
+    served, sent, calls = {}, [], []
+    _recording(server, served)
+    _timed_sends(server, tp, sent)
+    spy_calls(engine, calls)
+    keyed = []
+    if leader:
+        k_ids, k_patches, k_grid = build_request(cfg, 64, dev, seed + 80)
+        q2 = np.concatenate([k_ids[:-48], np.random.default_rng(seed + 81).integers(
+            10, 1000, size=48)]).astype(np.int64)
+        keyed = [dict(input_ids=q, pixel_values_videos=k_patches, video_grid_thw=k_grid,
+                      video_key="k", max_new_tokens=TP_D_TOKENS) for q in (k_ids, q2)]
+    futs = {}
+
+    def online():
+        handle = server.start_online()
+        t0 = time.perf_counter()
+        try:
+            if leader:
+                def client(items):
+                    for key, req, at in items:
+                        time.sleep(max(0.0, at - (time.perf_counter() - t0)))
+                        futs[key] = handle.submit(req)
+
+                plan = [[], []]
+                for thread, i, at in TP_D_SUBMIT:
+                    plan[thread].append((f"serve{i}", dict(reqs[i], max_new_tokens=TP_D_TOKENS),
+                                         at))
+                plan[1] += [("miss", keyed[0], 2.5), ("hit", keyed[1], 3.0),
+                            ("bad", {"input_ids": "not-an-array"}, 3.5),
+                            ("late", dict(keyed[1], deadline_s=0.0), 4.0)]
+                threads = [threading.Thread(target=client, args=(items,)) for items in plan]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(WAIT_S)
+                    check(not t.is_alive(), "a submitting thread hung")
+                for f in futs.values():
+                    f.result(timeout=WAIT_S)
+        finally:
+            handle.close(timeout=WAIT_S)
+        check(not handle._thread.is_alive() and handle.error is None, ("worker", handle.error))
+
+    _, m = measure(online)
+    for name in ("generate", "encode_prefix", "encode_video"):
+        del engine.__dict__[name]
+    st = dict(server.stats)
+    kinds = {}
+    for kind, n in calls:
+        kinds.setdefault(kind, []).append({k: v for k, v in n.items() if v})
+    m.update(stats=st, sent=sent, kinds=kinds)
+    for rid, res in served.items():
+        arrays[f"d_online_{rid}"] = res.tokens
+    log(f"{tag} (d) online: {len(served)} results in {m['wall_s']:.3f} s, collectives "
+        f"{100 * m['collective_share']:.1f}%; stats {json.dumps(st)}; launches {m['launches']}")
+    log(f"{tag} (d) requests sent to the other ranks (bytes, s): "
+        + ", ".join(f"({b}, {s:.3f})" for b, s in sent))
+    log(f"{tag} (d) launches per admission kind: {json.dumps(kinds)}")
+    want = {"requests_failed": 1, "requests_rejected_deadline": 1, "vision_cache_hits": 1,
+            "vision_cache_misses": 1, "prefix_cache_hits": 1, "prefix_cache_misses": 1,
+            "requests_finished": len(TP_D_SUBMIT) + 2, "requests_cancelled": 0}
+    check(all(st[k] == v for k, v in want.items()), (st, want))
+    # encode_video: the keyed miss's, and the one inside each inline request
+    check(len(kinds.get("prefix", [])) == 2 and len(kinds.get("encode_prefix", [])) == 1
+          and len(kinds.get("inline", [])) == len(TP_D_SUBMIT)
+          and len(kinds.get("encode_video", [])) == 1 + len(TP_D_SUBMIT),
+          {k: len(v) for k, v in kinds.items()})
+    for n in kinds["prefix"]:  # one text step over the captured int8 cache
+        check(n.get("K1-int8") == layers and "K2" not in n and "K3" not in n, ("prefix", n))
+    for n in kinds["encode_video"]:  # one ViT chunk (64 or 128 frames)
+        check(n.get("K3") == depth and "K1-int8" not in n, ("encode_video", n))
+    summary["online"] = m
+    if leader:
+        res = {k: f.result(timeout=0) for k, f in futs.items()}
+        check(res["bad"].error and res["bad"].cancelled and not len(res["bad"].tokens), res["bad"])
+        check(res["late"].cancelled and not len(res["late"].tokens), res["late"])
+        for key in ("miss", "hit"):
+            check(len(res[key].tokens) == TP_D_TOKENS and not res[key].cancelled, res[key])
+        agree = total = 0
+        for _, i, _ in TP_D_SUBMIT:  # against the start of (b)'s run() stream
+            a, b = res[f"serve{i}"].tokens, arrays[f"b_tokens_{TP_SERVE[i]}"][:TP_D_TOKENS]
+            k = min(len(a), len(b))
+            agree += int(np.sum(a[:k] == b[:k]))
+            total += max(len(a), len(b))
+        log(f"{tag} (d) online streams vs (b)'s: agreement {agree / total:.4f} (bound "
+            f"{TP_MIN_AGREEMENT})")
+        check(agree / total >= TP_MIN_AGREEMENT, agree / total)
+        summary["online_prefill"] = {k: res[k].first_token_s - res[k].prefill_start_s
+                                     for k in ("miss", "hit")}
+        summary["online_agreement"] = agree / total
+        log(f"{tag} (d) keyed video: miss TTFT {res['miss'].ttft_s:.3f} s, of it its admission "
+            f"{summary['online_prefill']['miss']:.3f} s (ViT, capture); hit TTFT "
+            f"{res['hit'].ttft_s:.3f} s, admission {summary['online_prefill']['hit']:.3f} s (one "
+            f"text step); the rest is the queue behind (b)'s requests; {len(sent)} requests "
+            f"sent, {sum(b for b, _ in sent) / 1e6:.1f} MB in {sum(s for _, s in sent):.3f} s")
+
+    # HTTP: rank 0 binds and loads the frames; the other ranks follow
+    proc = None
+    if leader:
+        proc = Qwen2VLProcessor(ByteTokenizer(), vision_start_token_id=cfg.vision_start_token_id,
+                                vision_end_token_id=cfg.vision_end_token_id,
+                                video_token_id=cfg.video_token_id,
+                                image_token_id=cfg.image_token_id)
+    srv = http_server.RetakeHTTPServer(engine, proc, rt, host="127.0.0.1", port=0, **SERVE_KW,
+                                       **caches)
+    http_served, http_sent, out = {}, [], {}
+    _recording(srv.server, http_served)
+    _timed_sends(srv.server, tp, http_sent)
+    loads = {"n": 0}
+    fetch = http_server.fetch_video
+
+    def counting_fetch(*a, **kw):
+        loads["n"] += 1
+        return fetch(*a, **kw)
+
+    http_server.fetch_video = counting_fetch
+
+    def post(body):
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.port}/v1/generate",
+                                     data=json.dumps(body).encode(), method="POST",
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=WAIT_S) as r:
+            raw, ctype = r.read(), r.headers["Content-Type"]
+        if ctype.startswith("text/event-stream"):
+            return [json.loads(x[6:]) for x in raw.split(b"\n\n") if x.startswith(b"data: ")]
+        return json.loads(raw)
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}{path}", timeout=WAIT_S) as r:
+            return json.loads(r.read())
+
+    def http():
+        with tempfile.TemporaryDirectory(prefix="retake_tp_frames_") as frames:
+            if leader:
+                write_frames(frames, HTTP_FRAMES, 448, 252, seed + 90, block=4)
+            body = {"question": "What happens in the video? Answer with the option's letter.",
+                    "video_path": frames, "extraction_fps": rt.sample_fps,
+                    "max_new_tokens": TP_D_TOKENS}
+            srv.start()
+            try:
+                if leader:
+                    out["health"] = get("/healthz")
+                    c0 = read_counts()
+                    out["miss"] = post(body)
+                    c1 = read_counts()
+                    out["hit"] = post(body)
+                    c2 = read_counts()
+                    out["stream"] = post(dict(body, stream=True))
+                    out["metrics"] = get("/metrics")
+                    out["n_miss"] = {k: c1[k] - c0[k] for k in c1}
+                    out["n_hit"] = {k: c2[k] - c1[k] for k in c2}
+            finally:
+                srv.shutdown(timeout=WAIT_S)
+                http_server.fetch_video = fetch
+
+    _, m = measure(http)
+    check(srv.handle is None and not srv.server._slot_req, "the HTTP server did not stop")
+    m.update(stats=dict(srv.server.stats), sent=http_sent)
+    for rid, res in http_served.items():
+        arrays[f"d_http_{rid}"] = res.tokens
+    summary["http"] = m
+    log(f"{tag} (d) HTTP: {len(http_served)} results in {m['wall_s']:.3f} s; stats "
+        f"{json.dumps(m['stats'])}; requests sent (bytes, s): "
+        + ", ".join(f"({b}, {s:.3f})" for b, s in http_sent))
+    if leader:
+        miss, hit, stream = out["miss"], out["hit"], out["stream"]
+        streamed = [t for e in stream if not e.get("done") for t in e["tokens"]]
+        log(f"{tag} (d) HTTP miss TTFT {miss['ttft_s']:.3f} s, launches "
+            f"{ {k: v for k, v in out['n_miss'].items() if v} }; prefix hit TTFT "
+            f"{hit['ttft_s']:.3f} s, launches { {k: v for k, v in out['n_hit'].items() if v} }; "
+            f"stream {len(stream) - 1} chunks; frame loads {loads['n']}")
+        check(out["health"]["ok"] and loads["n"] == 1, (out["health"], loads))
+        for r in (miss, hit, stream[-1]):
+            check(len(r["tokens"]) == TP_D_TOKENS and not r["cancelled"] and "error" not in r, r)
+        check(streamed == stream[-1]["tokens"] and stream[-1]["done"], "stream vs done event")
+        check(out["n_miss"]["K3"] > 0 and out["n_hit"]["K3"] == 0
+              and out["n_hit"]["K1-int8"] == layers and out["n_hit"]["K2"] == 0,
+              (out["n_miss"], out["n_hit"]))
+        check(out["metrics"]["prefix_cache_hits"] == 2 and out["metrics"]["requests_finished"] == 3,
+              out["metrics"])
+        summary["http_ttft"] = {"miss": miss["ttft_s"], "hit": hit["ttft_s"]}
+    del srv, server
+    torch.cuda.empty_cache()
 
 
 def _free_port() -> int:
@@ -3022,9 +3310,27 @@ def phase_tp(args, refs: dict) -> dict:
     same = {k: all(np.array_equal(x[k], ranks[0][k]) for x in ranks) for k in ranks[0]}
     log(f"[24] {TP_SIZE} ranks ({summ[0]['backend']}) in {wall:.1f} s; ranks bit-identical: {same}")
     check(all(same.values()), same)
-    for part in ("request", "server", "llava", "llava_batch"):
+    for part in ("request", "server", "online", "http", "llava", "llava_batch"):
         check(all(s[part]["launches"] == summ[0][part]["launches"] for s in summ),
               (part, [s[part]["launches"] for s in summ]))
+    for part in ("online", "http"):  # stats, and the bytes each request brought
+        check(all(s[part]["stats"] == summ[0][part]["stats"]
+                  and [b for b, _ in s[part]["sent"]] == [b for b, _ in summ[0][part]["sent"]]
+                  for s in summ), (part, [(s[part]["stats"], s[part]["sent"]) for s in summ]))
+    d_keys = sorted(k for k in ranks[0] if k.startswith("d_"))
+    d0 = summ[0]
+    sent = d0["online"]["sent"] + d0["http"]["sent"]
+    log(f"[24] (d) online and HTTP under TP: {len(d_keys)} results bit-equal on the "
+        f"{TP_SIZE} ranks; keyed video admission miss {d0['online_prefill']['miss']:.3f} s / "
+        f"hit {d0['online_prefill']['hit']:.3f} s; HTTP TTFT miss "
+        f"{d0['http_ttft']['miss']:.3f} s / hit {d0['http_ttft']['hit']:.3f} s; {len(sent)} "
+        f"requests sent, largest "
+        f"{max(b for b, _ in sent) / 1e6:.1f} MB in {max(t for _, t in sent):.3f} s, all "
+        f"{sum(b for b, _ in sent) / 1e6:.1f} MB in {sum(t for _, t in sent):.3f} s; online "
+        f"{d0['online']['wall_s']:.1f} s, HTTP {d0['http']['wall_s']:.1f} s; agreement with "
+        f"(b) {d0['online_agreement']:.4f}")
+    check(len(d_keys) == len(sent),
+          ("every admitted request's result on every rank", d_keys))
     r0 = ranks[0]
     a_ref, c_ref = refs.get("10"), refs.get("22")
     if a_ref is not None:
@@ -3066,6 +3372,8 @@ def phase_tp(args, refs: dict) -> dict:
             f"rank wall {s_['seconds']:.1f} s")
     return {"24 request": summ[0]["request"]["launches"],
             "24 server": summ[0]["server"]["launches"],
+            "24 online": summ[0]["online"]["launches"],
+            "24 http": summ[0]["http"]["launches"],
             "24 llava": {k: summ[0]["llava"]["launches"][k] + summ[0]["llava_batch"]["launches"][k]
                          for k in summ[0]["llava"]["launches"]}}
 

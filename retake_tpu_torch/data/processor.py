@@ -11,11 +11,12 @@ LLaVA-Video: square frames, anyres image tiles, the placeholder span of
 frames x tokens per frame + 1. ``from_pretrained`` loads a HF tokenizer
 (``transformers`` is imported inside it).
 
-Copied without the original's native C++ normalize + patchify fast path
-(``retake_tpu.native``, which the port may not import; the numpy path here
-computes the same function). ``tests/test_torch_data.py`` and
-``tests/test_torch_llava.py`` pin this copy to the original. PIL is
-imported lazily, as in the original.
+``preprocess_video`` normalizes and patchifies in one native C++ pass
+(``retake_tpu_torch.native``, the original's fast path, bit-identical to
+it) and takes the numpy path only where the library cannot be built
+(``NativeUnavailable``), as the original does. ``tests/test_torch_data.py``,
+``tests/test_torch_native.py`` and ``tests/test_torch_llava.py`` pin this
+copy to the original. PIL is imported lazily, as in the original.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from retake_tpu_torch import native
 
 OPENAI_CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 OPENAI_CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -107,6 +110,15 @@ def preprocess_video(
     out_h, out_w = smart_resize(h0, w0, factor, min_pixels, max_pixels)
 
     resized = np.stack([_resize_bicubic(f, out_h, out_w) for f in frames])
+    # fast path: one native pass of normalize + patchify (the numpy path
+    # makes several full passes over the frames)
+    try:
+        flat = native.patchify_qwen(resized, patch_size, temporal_patch_size, merge_size)
+        grid_t = -(-resized.shape[0] // temporal_patch_size)
+        return flat, (grid_t, out_h // patch_size, out_w // patch_size)
+    except native.NativeUnavailable:
+        pass
+
     proc = resized.astype(np.float32) / 255.0
     proc = (proc - OPENAI_CLIP_MEAN) / OPENAI_CLIP_STD
     proc = proc.transpose(0, 3, 1, 2)  # [T, C, H, W]

@@ -8,10 +8,13 @@ of ``retake_tpu/data/video.py``).
   only the files at those indices are read.
 * Longest-side resize with NEAREST resampling (only shrinks).
 
-Copied without the original's native JPEG decode fast path
-(``retake_tpu.native``, which the port may not import): frames decode
-through PIL here. PIL and OpenCV are imported lazily, as in the original.
-``tests/test_torch_data.py`` pins this copy to the original.
+A frame directory of JPEGs decodes through the port's native library
+(``retake_tpu_torch.native``: libjpeg and the C++ NEAREST resize, many
+threads) where it builds, exactly where the original takes its native fast
+path; where libjpeg is missing (``NativeUnavailable``) frames decode
+through PIL, as the original's do there. PIL and OpenCV are imported
+lazily, as in the original. ``tests/test_torch_data.py`` and
+``tests/test_torch_native.py`` pin this copy to the original.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import os
 from typing import List, Optional, Union
 
 import numpy as np
+
+from retake_tpu_torch import native
 
 
 def get_frame_indices(
@@ -93,6 +98,14 @@ def load_frame_dir(
         set(np.linspace(0, total - 1, n).astype(np.int32).tolist())
     )
     paths = [os.path.join(video_root, files[i]) for i in indices]
+
+    # fast path: native multi-threaded JPEG decode + NEAREST resize
+    if all(p.lower().endswith((".jpg", ".jpeg")) for p in paths):
+        try:
+            return list(native.load_frames(paths, resolution or 0))
+        except native.NativeUnavailable:
+            pass
+
     frames = []
     for p in paths:
         frame = np.asarray(Image.open(p).convert("RGB"))

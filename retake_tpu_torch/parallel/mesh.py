@@ -35,7 +35,10 @@ EOS checks) runs replicated and must compute the same bits on every rank:
 ``TensorParallel.check`` turns on a digest of those values that the
 engines compare across ranks at the end of each request
 (``assert_replicated``). The continuous server's wall-clock decisions are
-taken by rank 0 and broadcast (``runtime/serve.py``).
+taken by rank 0 and broadcast (``broadcast_ints``); in online mode rank 0
+also sends each request it admits (``broadcast_tensor`` /
+``broadcast_bytes``: a header of ints, then the payload) to the other
+ranks (``runtime/serve.py``).
 
 The handle calls the group object's own methods
 (``group.allreduce([t], opts).wait()``), so it takes a group from
@@ -57,6 +60,10 @@ import numpy as np
 import torch
 
 BACKENDS = ("gloo", "nccl")
+MAX_DIMS = 8  # broadcast_tensor's header holds this many dims
+# the dtypes broadcast_tensor carries (its header's code is the index here)
+BROADCAST_DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16, torch.int64,
+           torch.int32, torch.int16, torch.int8, torch.uint8, torch.bool)
 
 # column-parallel linears (output dim sharded); row-parallel (input sharded)
 _COL_PARALLEL = ("q", "k", "v", "gate", "up")
@@ -113,6 +120,7 @@ class TensorParallel:
         self.check = False
         self.seconds = 0.0
         self.calls = 0
+        self.bytes_broadcast = 0  # payload bytes of broadcast_tensor / broadcast_bytes
         self._digest = hashlib.sha256()
 
     def __repr__(self) -> str:
@@ -136,11 +144,11 @@ class TensorParallel:
         if sync:
             torch.cuda.synchronize(t.device)
         t0 = time.perf_counter()
+        self.calls += 1  # issued: counted even if it raises
         work_fn().wait()
         if sync:
             torch.cuda.synchronize(t.device)
         self.seconds += time.perf_counter() - t0
-        self.calls += 1
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Sum (or max) ``t`` over the group in place; returns ``t``."""
@@ -166,13 +174,54 @@ class TensorParallel:
 
     def broadcast_ints(self, values) -> list:
         """Rank 0's ``values`` (a few ints) on every rank."""
+        t = torch.tensor(list(values), dtype=torch.int64, device=self._host_device())
+        self._broadcast(t)
+        return t.tolist()
+
+    def agree(self, flag: int) -> list:
+        """Every rank's ``flag`` (an int), in rank order. An all-to-all, a
+        collective the engines never issue: paired by mistake with one of
+        theirs (a rank that went its own way) it times out, where one of
+        the same kind and another size would abort a gloo process."""
         import torch.distributed as dist
 
-        t = torch.tensor(list(values), dtype=torch.int64, device=self._host_device())
+        t = torch.full((self.size,), int(flag), dtype=torch.int64, device=self._host_device())
+        out = torch.empty_like(t)
+        self._run(lambda: self.group.alltoall_base(out, t, [], [], dist.AllToAllOptions()), t)
+        return out.tolist()
+
+    def broadcast_tensor(self, t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Rank 0's tensor ``t`` (any dtype, up to ``MAX_DIMS`` dims; the
+        other ranks pass nothing) on every rank, on ``_host_device()``: a
+        header of ints (dtype, shape), then the payload as bytes."""
+        head = [0] * (2 + MAX_DIMS)
+        if self.rank == 0:
+            if t.dim() > MAX_DIMS:
+                raise ValueError(f"broadcast_tensor takes up to {MAX_DIMS} dims, got {t.dim()}")
+            head[:2 + t.dim()] = [BROADCAST_DTYPES.index(t.dtype), t.dim(), *t.shape]
+        head = self.broadcast_ints(head)
+        dtype, shape = BROADCAST_DTYPES[head[0]], head[2:2 + head[1]]
+        if self.rank == 0:
+            data = t.detach().to(self._host_device()).contiguous().reshape(-1).view(torch.uint8)
+        else:
+            n = int(np.prod(shape, dtype=np.int64)) * torch.empty(0, dtype=dtype).element_size()
+            data = torch.empty(n, dtype=torch.uint8, device=self._host_device())
+        if data.numel():
+            self._broadcast(data)
+        self.bytes_broadcast += data.numel()
+        return data.view(dtype).reshape(shape)
+
+    def broadcast_bytes(self, b: Optional[bytes] = None) -> bytes:
+        """Rank 0's ``b`` (the other ranks pass nothing) on every rank."""
+        t = None if self.rank else torch.frombuffer(bytearray(b), dtype=torch.uint8)
+        return self.broadcast_tensor(t).cpu().numpy().tobytes()
+
+    def _broadcast(self, t: torch.Tensor) -> None:
+        import torch.distributed as dist
+
         opts = dist.BroadcastOptions()
         opts.rootRank = 0
         self._run(lambda: self.group.broadcast([t], opts), t)
-        return t.tolist()
 
     # ---------- replica checks ----------
 

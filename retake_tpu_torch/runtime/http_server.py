@@ -33,6 +33,14 @@ both caches with one dict ``get`` each (the worker mutates them only by
 single dict operations), and a hit skips the frame loading and the
 processor's pixel work as well.
 
+Under tensor parallelism (an engine built with ``tp=``) every rank
+constructs and starts the server: rank 0 binds the socket, runs the HTTP
+thread, loads and processes the frames, and its serving worker sends each
+request it admits to the other ranks, whose ``start()`` runs a follower
+worker (``ContinuousServer.start_online``) and binds nothing. ``shutdown()``
+on rank 0 ends every rank's worker; another rank's ``shutdown()`` waits for
+that.
+
 Start on the card (random weights; a real tokenizer is not in the repo):
 ``RetakeHTTPServer(engine, Qwen2VLProcessor(tokenizer), rt, port=8000,
 batch_slots=4, vision_cache_slots=2, prefix_cache_slots=2).start()``
@@ -55,7 +63,8 @@ from retake_tpu_torch.runtime.serve import ContinuousServer
 class RetakeHTTPServer:
     """See the module docstring. ``start()`` returns once the socket is
     bound (``port=0`` picks a free one, read back from ``port``);
-    ``shutdown()`` stops HTTP, then drains and joins the serving loop."""
+    ``shutdown()`` stops HTTP, then drains and joins the serving loop.
+    ``leader``: this process serves HTTP (tp = 1, or rank 0 under TP)."""
 
     def __init__(
         self,
@@ -67,14 +76,12 @@ class RetakeHTTPServer:
         max_queue: Optional[int] = None,  # submit backlog bound (503 past it)
         **server_kwargs,
     ):
-        if getattr(engine, "tp", None) is not None:
-            raise NotImplementedError("the HTTP front end under tensor parallelism: request "
-                                      "payloads do not travel between the ranks yet")
         self.max_queue = max_queue
         self.engine = engine
         self.processor = processor
         self.rt = rt
         self.server = ContinuousServer(engine, **server_kwargs)
+        self.leader = self.server.tp is None or self.server.tp.rank == 0
         self.handle = None
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._http_thread: Optional[threading.Thread] = None
@@ -83,6 +90,9 @@ class RetakeHTTPServer:
 
     def start(self):
         self._t_start = time.time()
+        if not self.leader:  # a follower rank: serve what rank 0 admits
+            self.handle = self.server.start_online()
+            return self
         outer = self
 
         class Handler(BaseHTTPRequestHandler):

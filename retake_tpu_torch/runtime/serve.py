@@ -61,19 +61,31 @@ CUDA stream are per thread in PyTorch: the worker runs under
 every device operation of the server is issued there in program order.
 
 Tensor parallelism (an engine built with ``tp=``): every rank runs ``run``
-with the same requests, and the gap-layout cache holds the rank's KV heads.
+(or ``start_online``) and the gap-layout cache holds the rank's KV heads.
 The loop decides by the wall clock (arrivals, deadlines) and by the
 ``on_tokens`` verdicts, which two processes would read differently and then
 hang in a collective. So rank 0 alone reads the clock and calls
 ``on_tokens``, and broadcasts each decision (which request arrives, whether
 one is cancelled) as a few ints; the other ranks act on the broadcast.
-Online mode would have to carry the requests themselves between the ranks:
-``start_online`` raises under TP.
+``run`` sends a request's index (every rank holds the list); online, rank 0
+sends the request itself (``_send_request``): its fields as a JSON header
+and its arrays as tensors, except features it carries under a
+``video_key`` that is still in a cache at admission, which every rank then
+takes from its own cache. The ranks run the same admissions in the same
+order, so their caches (hits, evictions, captures, ``PrefixMismatch``
+fallbacks, recaptures) stay in lockstep; under ``tp.check`` they compare
+their cache keys and ``stats`` after each admission. An admission that
+raises on every rank before any collective (a malformed request) fails its
+request alone; any other error ends the worker on every rank (the others'
+next collective times out or fails). Rank 0's idle worker still broadcasts
+a "wait" at least every ``IDLE_POLL_S``, so the other ranks' collectives
+never sit out the group's timeout.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import queue
 import threading
 import time
@@ -83,11 +95,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from retake_tpu_torch.parallel.mesh import BROADCAST_DTYPES
 from retake_tpu_torch.runtime.engine import (
     PrefillState,
     PrefixBudgetOverflow,
     PrefixMismatch,
     PrefixUnsupported,
+    VideoFeatures,
     _decode_loop_batch,
     _insert_batch_slot,
     batched_decode_impl,
@@ -96,6 +110,45 @@ from retake_tpu_torch.runtime.sampling import Sampler
 
 GAP_ALIGN = 2048  # the shared bucket (prefill bucket + gap) is a multiple of this
 _EVENTS = ("end", "wait", "req")  # the source's events, by their code under TP
+IDLE_POLL_S = 1.0  # an idle online worker's longest wait before the next event
+
+
+def _pack(v, tensors: list):
+    """A JSON-able description of one request value; its arrays and tensors
+    are appended to ``tensors`` (sent after the description)."""
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return {"v": v}
+    if isinstance(v, np.generic):
+        return {"v": v.item()}
+    if isinstance(v, (np.ndarray, torch.Tensor)):
+        t = torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray) else v
+        if t.dtype not in BROADCAST_DTYPES:
+            raise TypeError(f"a request array of dtype {t.dtype} cannot travel between ranks")
+        tensors.append(t)
+        return {"np" if isinstance(v, np.ndarray) else "torch": len(tensors) - 1,
+                "cuda": t.is_cuda}
+    if isinstance(v, (list, tuple)):
+        return {"seq": [_pack(x, tensors) for x in v], "tuple": isinstance(v, tuple)}
+    if isinstance(v, VideoFeatures):
+        return {"features": {f.name: _pack(getattr(v, f.name), tensors)
+                             for f in dataclasses.fields(v)}}
+    raise TypeError(f"a request value of type {type(v).__name__} cannot travel between ranks")
+
+
+def _unpack(d: dict, tensors: list, device):
+    """The value ``_pack`` described: arrays back to numpy, tensors on
+    ``device`` where rank 0's were on a card."""
+    if "v" in d:
+        return d["v"]
+    if "np" in d:
+        return tensors[d["np"]].cpu().numpy()
+    if "torch" in d:
+        t = tensors[d["torch"]]
+        return t.to(device) if d["cuda"] else t.cpu()
+    if "seq" in d:
+        items = [_unpack(x, tensors, device) for x in d["seq"]]
+        return tuple(items) if d["tuple"] else items
+    return VideoFeatures(**{k: _unpack(x, tensors, device) for k, x in d["features"].items()})
 
 
 def _dev(x: np.ndarray, device) -> torch.Tensor:
@@ -405,28 +458,67 @@ class ContinuousServer:
             return "req", (requests[i], i, on_tokens, arrivals[i])
 
         if self.tp is not None:
-            source = self._led_source(source, requests, arrivals)
+            source = self._led_source(source, lambda i: (requests[i], i, None, arrivals[i]))
         self._serve_loop(source, lambda res: results.__setitem__(res.request_id, res))
-        if self.tp is not None:
-            self.tp.assert_replicated("server", *[r.tokens for r in results])
         return results
 
-    def _led_source(self, source, requests, arrivals):
+    def _led_source(self, source, follow=None):
         """Under TP: rank 0 runs ``source`` and broadcasts each event as
-        (event code, request index); the other ranks take the request from
-        their own list, without ``on_tokens`` (rank 0 streams)."""
+        (event code, request id); the other ranks get their request from
+        ``follow(request_id)`` (``run``: every rank holds the list) or, with
+        no ``follow`` (online mode), from rank 0's ``_send_request``. Only
+        rank 0 has ``on_tokens`` (it streams)."""
         tp = self.tp
 
         def led(now, idle):
             kind, payload = source(now, idle) if tp.rank == 0 else ("end", None)
-            code = (_EVENTS.index(kind), -1 if payload is None else payload[1])
-            code = tp.broadcast_ints(code)
+            code = tp.broadcast_ints((_EVENTS.index(kind), -1 if payload is None else payload[1]))
+            kind, rid = _EVENTS[code[0]], code[1]
+            if kind != "req":
+                return kind, None
+            if follow is not None:
+                return "req", payload if tp.rank == 0 else follow(rid)
             if tp.rank == 0:
-                return kind, payload
-            kind, i = _EVENTS[code[0]], code[1]
-            return (kind, None) if kind != "req" else ("req", (requests[i], i, None, arrivals[i]))
+                req, _, cb, arrival = payload
+                return "req", (self._send_request(req), rid, cb, arrival)
+            return "req", (self._recv_request(), rid, None, now())
 
         return led
+
+    def _cached_features(self, cache: str, key):
+        return self._vision_cache[key] if cache == "vision" else self._prefix_cache[key].features
+
+    def _send_request(self, req: dict) -> dict:
+        """Rank 0, online under TP: send ``req`` to the other ranks and
+        return the request every rank admits. Features under a
+        ``video_key`` still in a cache are not sent: every rank takes them
+        from that cache (the HTTP front end peeked them earlier, and the
+        entry may have gone since: then the tensors travel)."""
+        tp, req = self.tp, dict(req)
+        key, fields, tensors = req.get("video_key"), {}, []
+        for name, v in req.items():
+            cache = None
+            if name == "video_features" and v is not None and key is not None:
+                cache = ("vision" if key in self._vision_cache
+                         else "prefix" if key in self._prefix_cache else None)
+            if cache is not None:
+                req[name] = self._cached_features(cache, key)
+                fields[name] = {"cache": cache, "key": key}
+            else:
+                fields[name] = _pack(v, tensors)
+        tp.broadcast_bytes(json.dumps({"fields": fields, "tensors": len(tensors)}).encode())
+        for t in tensors:
+            tp.broadcast_tensor(t)
+        return req
+
+    def _recv_request(self) -> dict:
+        """The other ranks' side of ``_send_request``."""
+        tp = self.tp
+        msg = json.loads(tp.broadcast_bytes())
+        tensors = [tp.broadcast_tensor() for _ in range(msg["tensors"])]
+        return {name: (self._cached_features(d["cache"], d["key"]) if "cache" in d
+                       else _unpack(d, tensors, self.engine.device))
+                for name, d in msg["fields"].items()}
 
     def _lead(self, flags):
         """Rank 0's decisions (bools) on every rank under TP; as given at tp = 1."""
@@ -540,12 +632,12 @@ class ContinuousServer:
         in ``run``, cancel on False included). ``max_queue`` bounds the
         not-yet-admitted backlog: ``submit`` raises ``queue.Full`` past it.
         A request's ``deadline_s`` counts from its submission. One failed
-        admission fails only its request (``ServeResult.error``). Not under
-        tensor parallelism: the requests would have to travel between the
-        ranks (``NotImplementedError``)."""
-        if self.tp is not None:
-            raise NotImplementedError("online serving under tensor parallelism: request "
-                                      "payloads do not travel between the ranks yet")
+        admission fails only its request (``ServeResult.error``).
+
+        Under tensor parallelism every rank calls this (as ``run``): rank 0
+        gets the handle callers submit to, every other rank a follower
+        handle whose worker serves rank 0's requests (its ``submit``
+        raises); rank 0's ``close`` ends every rank's worker."""
         return OnlineHandle(self, max_queue=max_queue)
 
     def _serve_loop(self, source, emit_result, isolate_errors: bool = False):
@@ -559,6 +651,12 @@ class ContinuousServer:
         slot_meta: Dict[int, dict] = {}
         ended = False
         t0 = time.perf_counter()
+        if self.tp is not None:  # under tp.check the ranks compare what they emit
+            emit_rank = emit_result
+
+            def emit_result(res: ServeResult):
+                self.tp.note(res.tokens, res.cancelled)
+                emit_rank(res)
 
         def now():
             return time.perf_counter() - t0
@@ -591,23 +689,43 @@ class ContinuousServer:
                     ))
                     continue
                 t_pf = now()
+                error = None
+                calls = self.tp.calls if self.tp is not None else 0
                 try:
                     req_max = int(req.get("max_new_tokens") or self.max_new)
                     st = self._prefill(req, req_max, req.get("video_key"))
-                    if self.p_bucket is not None and st.attn_need > self.p_bucket:
-                        raise ValueError(
-                            f"request bucket {st.attn_need} exceeds server prefill bucket "
-                            f"{self.p_bucket} (max_new_tokens or video length too large "
-                            "for this server)"
-                        )
                 except Exception as e:  # the online worker's boundary: fail one request
                     if not isolate_errors:
                         raise
+                    if self.tp is not None:
+                        # failed alone only if every rank raised before any
+                        # collective (the same replicated check); else the
+                        # error may be this rank's alone and the ranks no
+                        # longer pair their collectives: the worker ends
+                        # here, and on the other ranks when their next
+                        # collective times out or fails
+                        if self.tp.calls != calls:
+                            raise
+                        self.tp.agree(1)  # returns once every rank failed it too
+                    error = f"{type(e).__name__}: {e}"
+                else:  # every rank computed attn_need alike: no rank decides alone
+                    if self.p_bucket is not None and st.attn_need > self.p_bucket:
+                        msg = (f"request bucket {st.attn_need} exceeds server prefill bucket "
+                               f"{self.p_bucket} (max_new_tokens or video length too large "
+                               "for this server)")
+                        if not isolate_errors:
+                            raise ValueError(msg)
+                        error = f"ValueError: {msg}"
+                if self.tp is not None and self.tp.check:
+                    state = repr((list(self._vision_cache), list(self._prefix_cache),
+                                  sorted(self.stats.items())))
+                    self.tp.assert_replicated("admission", np.frombuffer(state.encode(), np.uint8))
+                if error:
                     self.stats["requests_failed"] += 1
                     emit_result(ServeResult(
                         request_id=rid, tokens=np.zeros(0, np.int64), arrival_s=arrival,
                         prefill_start_s=t_pf, first_token_s=now(), finish_s=now(),
-                        cancelled=True, error=f"{type(e).__name__}: {e}",
+                        cancelled=True, error=error,
                     ))
                     continue
                 # blind segments staged during this prefill predate the
@@ -688,6 +806,8 @@ class ContinuousServer:
                     self._compact(self._counts())
                 self._segment()
                 drain_staged()
+            if self.tp is not None:
+                self.tp.assert_replicated("served")
         finally:
             self._slot_req = None
             self._drain = None
@@ -698,10 +818,17 @@ class OnlineHandle:
     (``start_online``): ``submit(request, on_tokens=None)`` from any thread
     returns a ``Future[ServeResult]``; one worker thread runs the serving
     loop and every device operation. ``close()`` stops admission, serves the
-    requests in flight and joins the worker. A context manager."""
+    requests in flight and joins the worker. A context manager.
+
+    Under TP the handle of a rank other than 0 is a follower (``leader``
+    False): its worker serves the requests rank 0 sends, ``submit`` raises,
+    and ``close()`` only joins the worker, which ends when rank 0's handle
+    closes. ``error`` holds the exception a worker died of."""
 
     def __init__(self, server: ContinuousServer, max_queue: Optional[int] = None):
         self.server = server
+        self.leader = server.tp is None or server.tp.rank == 0
+        self.error: Optional[BaseException] = None
         self.max_queue = max_queue
         self._q: queue.Queue = queue.Queue()
         self._futures: Dict[int, Future] = {}
@@ -712,6 +839,12 @@ class OnlineHandle:
         self._thread.start()
 
     def submit(self, request: dict, on_tokens=None) -> Future:
+        if not self.leader:
+            raise RuntimeError(f"submit to rank 0: rank {self.server.tp.rank} serves the "
+                               "requests rank 0 sends")
+        if self.server.tp is not None:
+            for v in request.values():  # TypeError here, not in the worker
+                _pack(v, [])
         with self._lock:
             if self._closed:
                 raise RuntimeError("OnlineHandle is closed")
@@ -731,9 +864,9 @@ class OnlineHandle:
         (``timeout`` bounds the join; the worker is alive after it only if
         the join timed out)."""
         with self._lock:
-            if not self._closed:
-                self._closed = True
+            if not self._closed and self.leader:
                 self._q.put(None)  # under the lock: no submission after the sentinel
+            self._closed = True
         self._thread.join(timeout)
 
     def __enter__(self):
@@ -744,8 +877,8 @@ class OnlineHandle:
 
     def _work(self):
         def source(now, idle):
-            try:  # idle: block until a request or the sentinel; busy: poll
-                item = self._q.get(block=idle)
+            try:  # idle: wait (bounded) for a request or the sentinel; busy: poll
+                item = self._q.get(block=idle, timeout=IDLE_POLL_S if idle else None)
             except queue.Empty:
                 return "wait", None
             if item is None:
@@ -754,16 +887,20 @@ class OnlineHandle:
             return "req", (req, rid, cb, t_submit - time.perf_counter() + now())
 
         def emit(res: ServeResult):
+            if not self.leader:
+                return
             with self._lock:
                 fut = self._futures.pop(res.request_id)
             fut.set_result(res)
 
+        if self.server.tp is not None:
+            source = self.server._led_source(source)
         exc: BaseException = RuntimeError("server closed before the request ran")
         try:
             with torch.no_grad():
                 self.server._serve_loop(source, emit, isolate_errors=True)
         except BaseException as e:  # the worker died: fail every pending future
-            exc = e
+            exc = self.error = e
             raise
         finally:
             with self._lock:

@@ -1,10 +1,10 @@
 """The port's jax-free host data copies (``retake_tpu_torch/data/processor.py``
 and ``data/video.py``) pinned to their originals in ``retake_tpu/data/``:
 ``smart_resize``, the patches of ``preprocess_video`` / ``preprocess_image``
-against the original's numpy path (its native C++ fast paths made
-unavailable by monkeypatching), ``Qwen2VLProcessor``'s ids, grids and
+against the original's numpy path (the native C++ fast paths of both
+packages made unavailable by monkeypatching), ``Qwen2VLProcessor``'s ids, grids and
 pixels, frame sampling, the longest-side resize, and ``fetch_video`` on a
-JPEG frame directory against the original's PIL path; all exact. Also: the
+JPEG frame directory against the original's PIL path (both packages'); all exact. Also: the
 new modules import neither jax nor the JAX package. A video file is
 written and read with OpenCV.
 """
@@ -20,6 +20,7 @@ from PIL import Image
 from retake_tpu import native
 from retake_tpu.data import processor as jproc
 from retake_tpu.data import video as jvideo
+from retake_tpu_torch import native as tnative
 from retake_tpu_torch.data import processor as tproc
 from retake_tpu_torch.data import video as tvideo
 
@@ -36,14 +37,16 @@ class StubTokenizer:
 
 @pytest.fixture
 def no_native(monkeypatch):
-    """The original takes its numpy / PIL paths: its native entry points
-    raise, as they do where the library cannot be built."""
+    """Both packages take their numpy / PIL paths: the native entry points
+    of the original and of the port raise, as they do where the library
+    cannot be built (tests/test_torch_native.py compares the native paths)."""
 
-    def unavailable(*a, **kw):
-        raise native.NativeUnavailable("disabled by the test")
+    for mod in (native, tnative):
+        def unavailable(*a, _mod=mod, **kw):
+            raise _mod.NativeUnavailable("disabled by the test")
 
-    monkeypatch.setattr(native, "patchify_qwen", unavailable)
-    monkeypatch.setattr(native, "load_frames", unavailable)
+        monkeypatch.setattr(mod, "patchify_qwen", unavailable)
+        monkeypatch.setattr(mod, "load_frames", unavailable)
 
 
 def _frames(rng, n, h, w):
@@ -167,12 +170,14 @@ def test_fetch_video_file_copy_matches(video_file, max_frames, fps, res):
 
 
 def test_new_port_modules_import_no_jax():
-    """The HTTP front end and the data copies import neither jax nor the
-    JAX package (nor do the server and engine they pull in)."""
+    """The HTTP front end, the data copies and the native binding import
+    neither jax nor the JAX package (nor do the server and engine they pull
+    in)."""
     code = (
         "import sys\n"
         "import retake_tpu_torch.runtime.http_server, retake_tpu_torch.data.processor\n"
         "import retake_tpu_torch.data.video, retake_tpu_torch.runtime.serve\n"
+        "import retake_tpu_torch.native\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'retake_tpu' or m.startswith('retake_tpu.')]\n"
         "assert not bad, bad\n"

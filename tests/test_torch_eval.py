@@ -11,9 +11,9 @@ byte for byte, with ``eval_batch_size`` 1 and 2 and
 ``reuse_video_features`` off and on (the same reuse summary). The answers
 alone would not show the tokens (a tokenizer's decode and ``trim_answer``
 keep one letter at most), so each run records the ids it decodes. Frames
-decode through PIL on both sides (the JAX package's native decoder is
-switched off, as tests/test_torch_data.py does), so both runners see the
-same pixels. Also: a shard half-written by one runner resumed by the
+take each package's default path (the native decoder and patchify where
+they build, bit-identical across the packages: tests/test_torch_native.py),
+so both runners see the same pixels. Also: a shard half-written by one runner resumed by the
 other; the LLaVA branch of ``_load_engine``; the CLI's ``main`` on a tiny
 saved HF checkpoint with a tokenizer built offline, in this process and
 as two OS processes joined by ``gloo``; the copies' scorers and dataset on
@@ -35,7 +35,6 @@ import pytest
 import torch
 import transformers
 
-from retake_tpu import native as jnative
 from retake_tpu.data import datasets as jdatasets
 from retake_tpu.data import processor as jproc
 from retake_tpu.data import scorers as jscorers
@@ -79,16 +78,6 @@ class StubTokenizer:
     def decode(self, ids, **kw):
         self.decoded.append([int(t) for t in ids])
         return "ABCD"[int(sum(ids)) % 4]
-
-
-def _native_off(mp):
-    """The JAX package's data path without its native decoder: PIL."""
-
-    def unavailable(*a, **kw):
-        raise jnative.NativeUnavailable("disabled by the test")
-
-    mp.setattr(jnative, "load_frames", unavailable)
-    mp.setattr(jnative, "patchify_qwen", unavailable)
 
 
 @pytest.fixture(scope="module")
@@ -156,9 +145,8 @@ def _run_jax(tiny, anno_file, rd, ranks=(0, 1), world=2, merge=True):
     dataset = jdatasets.BaseDataset(anno_file, processor_kwargs=DATA_KW)
     tok = StubTokenizer()
     out = io.StringIO()
-    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(out), \
+    with contextlib.redirect_stdout(out), \
             _ids_journaled(rd["output_dir"], ranks, tok.decoded) as ids:
-        _native_off(mp)
         for rank in ranks:
             jeval.run_eval(engine, _processor(jproc, cfg, tok), dataset, rt, rank, world)
         if merge:
@@ -346,7 +334,6 @@ def jax_cli(hf_qwen, bench, tmp_path_factory):
     decoded = []
     with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(io.StringIO()), \
             _ids_journaled(out_dir, (0,), decoded) as ids:
-        _native_off(mp)
         _record_decodes(mp, jproc, decoded)
         mp.setattr(sys, "argv", ["infer_eval"] + _cli_argv(hf_qwen, root, out_dir, bench))
         jeval.main()
@@ -445,9 +432,7 @@ def test_llava_branch_of_load_engine(bench, tmp_path, capsys):
             image_size=engine.cfg.vision.image_size, patch_size=engine.cfg.vision.patch_size,
             tokens_per_frame=engine.cfg.tokens_per_frame)
         dataset = ds.BaseDataset(bench, processor_kwargs=DATA_KW)
-        with pytest.MonkeyPatch.context() as mp, \
-                _ids_journaled(out_dir, (0, 1), tok.decoded) as ids[who]:
-            _native_off(mp)
+        with _ids_journaled(out_dir, (0, 1), tok.decoded) as ids[who]:
             for rank in (0, 1):
                 ev.run_eval(engine, proc, dataset, rt, rank, 2)
             ev.merge_and_score(rt, 2)
@@ -530,14 +515,12 @@ def test_get_eval_methods_and_dataset_copies_match(bench):
     got = tdatasets.get_dataset("videomme", bench, DATA_KW)
     want = jdatasets.get_dataset("videomme", bench, DATA_KW)
     assert len(got) == len(want) == sum(QUESTIONS)
-    with pytest.MonkeyPatch.context() as mp:
-        _native_off(mp)
-        for i in range(len(want)):
-            assert got.video_key(i) == want.video_key(i)
-            assert got.item_light(i) == want.item_light(i)
-            gi, gmsg, gmeta = got[i]
-            wi, wmsg, wmeta = want[i]
-            assert (gi, gmsg["question"], gmeta) == (wi, wmsg["question"], wmeta)
-            assert len(gmsg["video"]) == len(wmsg["video"]) == 8
-            for g, w in zip(gmsg["video"], wmsg["video"]):
-                np.testing.assert_array_equal(g, w)
+    for i in range(len(want)):
+        assert got.video_key(i) == want.video_key(i)
+        assert got.item_light(i) == want.item_light(i)
+        gi, gmsg, gmeta = got[i]
+        wi, wmsg, wmeta = want[i]
+        assert (gi, gmsg["question"], gmeta) == (wi, wmsg["question"], wmeta)
+        assert len(gmsg["video"]) == len(wmsg["video"]) == 8
+        for g, w in zip(gmsg["video"], wmsg["video"]):
+            np.testing.assert_array_equal(g, w)

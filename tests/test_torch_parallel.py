@@ -55,7 +55,6 @@ from retake_tpu_torch.parallel import TensorParallel, kv_slice, shard_params, sp
 from retake_tpu_torch.parallel.mesh import shard_leaf
 from retake_tpu_torch.runtime import cache as tcache
 from retake_tpu_torch.runtime.engine import Qwen2VLEngine
-from retake_tpu_torch.runtime.http_server import RetakeHTTPServer
 from retake_tpu_torch.runtime.llava_engine import LlavaOnevisionEngine
 from retake_tpu_torch.runtime.serve import ContinuousServer
 from retake_tpu_torch.utils.config import RetakeConfig
@@ -702,19 +701,15 @@ def _replica(tp, pcfg, tree, inputs):
 def test_tp_guards(tiny):
     """What TP refuses: KV heads that do not split over tp (a model built
     on tp = 4 with 2 KV heads), an unsharded tree under a handle, an engine
-    whose tp is not its model's, online serving and the HTTP front end, a
-    backend other than gloo / nccl, and an NCCL group bound to the CPU."""
+    whose tp is not its model's, a backend other than gloo / nccl, and an
+    NCCL group bound to the CPU."""
     def rank(tp):
         with pytest.raises(ValueError, match="columns"):
             Qwen2VLModel(tiny.pcfg, tiny.pp, tp)
         model = Qwen2VLModel(tiny.pcfg, shard_params(tiny.pp, tp), tp)
         with pytest.raises(ValueError, match="not the model"):
             Qwen2VLEngine(tiny.pcfg, model, RetakeConfig.from_dict({}), device="cpu")
-        eng = Qwen2VLEngine(tiny.pcfg, model, RetakeConfig.from_dict({}), device="cpu", tp=tp)
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            ContinuousServer(eng).start_online()
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            RetakeHTTPServer(eng, None, eng.retake, port=0)
+        Qwen2VLEngine(tiny.pcfg, model, RetakeConfig.from_dict({}), device="cpu", tp=tp)
         with pytest.raises(ValueError, match="NCCL group cannot carry"):
             TensorParallel(tp.group, backend="nccl").bind("cpu")
         with pytest.raises(ValueError, match="supports"):
