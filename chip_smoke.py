@@ -85,11 +85,12 @@ Phases (each prints; any failure raises and exits non-zero):
  23. the eval runner (``retake_tpu_torch.eval.infer_eval``) on 2B under
      configs/qwen2_vl/retake_qwen2-vl_videomme_tpu_serving.yaml (W8A8, int8
      KV, eval_batch_size 4) over a synthetic Video-MME benchmark (4 videos of
-     512 JPEG frames, 8 questions): the quantizer tool (``--vit``) over phase
+     512 JPEG frames, 2 questions each; the runs take the first 2 videos and
+     decode 16 tokens a sample): the quantizer tool (``--vit``) over phase
      21's checkpoint, bit-identical to quantizing the loaded tree; one
      process in-process (K1-int8, K2, K3 in every sample, no K4; journal and
      the three files); a resume that runs nothing; the CLI as two processes
-     joined by torch.distributed (gloo) on the card over 2 of the videos;
+     joined by torch.distributed (gloo) on the card over 1 of the videos;
      reuse of each video's features and prefix, token-exact against the
      one-process run; the host pipeline at 2048 frames: the native
      library's state (its patchify half must build), which path decoded the
@@ -97,10 +98,20 @@ Phases (each prints; any failure raises and exits non-zero):
  24. tensor parallelism, two rank processes of this script (gloo on one
      card, NCCL on two): (a) 7B in the serving config at ``--frames``, (b)
      three of phase 11's requests through ``ContinuousServer.run``, (d) the
-     same requests online from two threads with a keyed video asked twice,
+     first of them online with a keyed video asked twice, from two threads,
      an expired and a malformed request, then the HTTP front end (miss,
      prefix hit blocking and streamed), (c) LLaVA-Video-7B at 64 frames and
      ``generate_batch``; the ranks bit-equal, held to phases 10, 11 and 22
+ 25. the first-checkpoint gate (``retake_tpu_torch.tools.first_checkpoint_gate``)
+     on phase 21's 2B checkpoint, a 64-frame JPEG directory and a 2-sample
+     Video-MME slice of 512 frames: every stage in this process under
+     copies of the published configs with ``attn_implementation: "pallas"``
+     (launches per stage; K1, K1-int8, K2, K3 and K4 each at least once;
+     no stage errs, prefix reuse token-exact, serving-decode agreement >=
+     0.7, HTTP 200, eval_results.csv); beside it the gate as a user runs
+     it, a process under the published configs (one JSON line, every key);
+     then the reference's TTFT / TPOT protocol (``tools/cal_ttft.py``) at
+     512 frames
 
 The last two stdout lines are the kernels record and
 ``{"ok": true, "device": {...}}``; before them, the card's name and power
@@ -121,6 +132,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -132,28 +145,9 @@ import types
 import numpy as np
 import torch
 
-GRID_H, GRID_W = 32, 18  # 448x252 / 14
-RETAKE_CONFIG = {
-    "scaling_factor": 4,
-    "longvideo_kwargs": {
-        "frame_chunk_size": 128,
-        "chunked_prefill_frames": 32,
-        "visual_compression": True,
-        "visual_compression_kwargs": {
-            "compression_ratio": 1.0,
-            "compression_method": "Keyframe",
-            "patch_sync": False,
-            "return_keyframe_mask": True,
-        },
-        "kvcache_compression": True,
-        "kvcache_compression_kwargs": {
-            "dynamic_compression_ratio": True,
-            "compression_method": "pivotkv",
-            "pos_embed_reforge": True,
-            "max_input_length": 32000,
-        },
-    },
-}
+from retake_tpu_torch.tools.bench_model import (
+    GRID_H, GRID_W, RETAKE_CONFIG, build_request, random_patches)
+
 MAX_NEW_TOKENS = 16
 # the serving phase: ContinuousServer(engine, **SERVE_KW) over six requests
 # (frames, arrival s, own max_new_tokens or None); seeds 0-5
@@ -271,11 +265,17 @@ LLAVA_MIN_KEPT = E2E_MIN_KEPT_AGREEMENT
 # frames in one directory (symlinks). Reuse against inline: the same samples
 # in the same batches, and generate(prefix=) is token-exact (or raises
 # PrefixMismatch), so every sample's tokens must be equal. The CLI's two
-# processes share the card and take the first two videos (4 samples)
+# processes share the card and take the first MULTI_VIDEOS videos (a sample
+# a rank)
 SERVING_YAML = "configs/qwen2_vl/retake_qwen2-vl_videomme_tpu_serving.yaml"
 EVAL_VIDEOS, EVAL_FRAMES, EVAL_QUESTIONS, EVAL_WORKERS = 4, 512, 2, 2
-MULTI_VIDEOS = 2
+MULTI_VIDEOS = 1
 HOST_FRAMES = EVAL_VIDEOS * EVAL_FRAMES
+# cut for time (phase 25's room): the in-process runs (inline, resume,
+# reuse) take the first EVAL_RUN_VIDEOS videos, and every eval run decodes
+# EVAL_TOKENS tokens a sample (the config's 128 took 8.2 s a batch of 4,
+# PERF.md §5); all EVAL_VIDEOS videos' frames still feed the host pipeline
+EVAL_RUN_VIDEOS, EVAL_TOKENS = 2, 16
 # the native patchify against the numpy path (tests/test_native.py's bound:
 # the native pass folds 1/255 and 1/std into one factor, ~5e-7 apart on the CPU)
 NATIVE_PATCH_TOL = 1e-5
@@ -312,15 +312,36 @@ TP_MIN_AGREEMENT = 0.7
 TP_REL_LOGIT_TOL = 1e-3
 TP_TIMEOUT_S = 600.0  # both ranks' wall, start-up included
 # (d): online serving and HTTP on the ranks' 7B engines. Rank 0 submits
-# (b)'s requests again from two threads at their arrival times, a 64-frame
-# keyed video asked twice (a miss, then a vision-feature and a prefix hit),
-# a request with deadline_s 0 and a malformed one; then HTTP over
+# from two threads at their arrival times the TP_D_SUBMIT requests of (b)
+# again (one, for time), a 64-frame keyed video asked twice (a miss, then a
+# vision-feature and a prefix hit), a request with deadline_s 0 and a
+# malformed one; then HTTP over
 # HTTP_FRAMES JPEG frames: a miss and two prefix hits. Every request of (d)
 # decodes TP_D_TOKENS tokens, for time (host-bound TP decode is 0.27-0.46
 # s a token over gloo on one card, PERF.md); (b)'s requests are held to the
 # first TP_D_TOKENS of (b)'s streams
-TP_D_SUBMIT = [(0, 0, 0.0), (1, 1, 1.0), (0, 2, 2.0)]  # (thread, index into TP_SERVE, at s)
+TP_D_SUBMIT = [(0, 0, 0.0)]  # (thread, index into TP_SERVE, at s)
 TP_D_TOKENS = 8
+# phase 25: the gate's inputs: a GATE_FRAMES-frame 448x252 JPEG directory as
+# --video, and a Video-MME slice of GATE_SAMPLES questions about one
+# GATE_VIDEOMME_FRAMES-frame video (36864 video tokens, past the config's
+# max_input_length 32000, so PivotKV runs K2), both read at extraction fps 4
+# (every frame sampled); the quant stage at GATE_QUANT_FRAMES frames; every
+# stage decodes GATE_TOKENS tokens an answer (the configs' 128 would take
+# ~6 s a request at ~48 ms a token, PERF.md), in this process and in the
+# gate's own processes
+GATE_FRAMES, GATE_VIDEOMME_FRAMES, GATE_SAMPLES, GATE_QUANT_FRAMES = 64, 512, 2, 64
+GATE_TOKENS = 8
+GATE_KEYS = ("demo", "quant", "spec_parity", "prefix_parity", "http_golden",
+             "serve_decode_parity", "videomme_slice", "pass")
+GATE_CONFIGS = ("configs/retake_demo.yaml", "configs/qwen2_vl/retake_qwen2-vl_videomme.yaml")
+# the JAX stage's tiny-mode bar for the plain and K4 serving streams
+# (tools/gate_serve_decode_stage.py:135): random weights sit at near-ties
+GATE_MIN_AGREEMENT = 0.7
+# cal_ttft: the reference protocol at TTFT_FRAMES frames, TTFT_RUNS runs
+# (the first discarded), TPOT over TPOT_TOKENS tokens
+TTFT_FRAMES, TTFT_RUNS, TPOT_TOKENS = 512, 3, 64
+GATE_TIMEOUT_S = 600  # the gate process's wall (~200-300 s on the H100, PERF.md §6)
 # reference points of earlier runs on an NVIDIA H100 80GB HBM3 at 700 W
 # (PERF.md): phase 19's "flash" TTFT at 512 frames before the attention
 # window and the "pallas" warm decode of 15 tokens
@@ -802,30 +823,6 @@ def profile_run(fn, what: str):
                               ("K3", ("vit_attention_kernel",)),
                               ("K4", ("decode_gapped_kernel",)))}
     log("[p]   port kernels: " + ", ".join(f"{k} {v / 1e3:.1f} ms" for k, v in fam.items()))
-
-
-def build_request(cfg, num_frames: int, dev, seed: int):
-    grid_t = num_frames // cfg.vision.temporal_patch_size
-    n_video = grid_t * GRID_H * GRID_W // cfg.vision.spatial_merge_size**2
-    rng = np.random.default_rng(seed)
-    pre = rng.integers(10, 1000, size=16).tolist()
-    post = rng.integers(10, 1000, size=48).tolist()  # the "question"
-    ids = np.array(
-        pre + [cfg.vision_start_token_id] + [cfg.video_token_id] * n_video
-        + [cfg.vision_end_token_id] + post,
-        dtype=np.int64,
-    )
-    patches = random_patches(cfg, grid_t * GRID_H * GRID_W, dev, seed)
-    return ids, patches, np.array([[grid_t, GRID_H, GRID_W]])
-
-
-def random_patches(cfg, n: int, dev, seed: int) -> torch.Tensor:
-    """``n`` bf16 patch rows of pixel-like values, drawn on the card."""
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    raw = torch.randint(0, 255, (n, cfg.vision.patch_input_dim), generator=gen, device=dev,
-                        dtype=torch.int32)
-    return ((raw.to(torch.float32) - 127.5) / 64.0).to(torch.bfloat16)
 
 
 def compressing_64(rd: dict) -> dict:
@@ -2302,11 +2299,12 @@ def phase_loading(cfg, model, dev, seed: int, hf_dir: str) -> dict:
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         rc = demo.main(["--random-weights", "--frames", "64", "--json", "--device", str(dev),
+                        "--max_new_tokens", str(GATE_TOKENS),
                         "--config", os.path.join(root, "configs", "retake_demo.yaml")])
     n = read_counts()
     lines = out.getvalue().strip().splitlines()
     answers = json.loads(lines[-1])
-    log(f"[21] demo --random-weights --frames 64 --json: exit {rc} in "
+    log(f"[21] demo --random-weights --frames 64 --json --max_new_tokens {GATE_TOKENS}: exit {rc} in "
         f"{time.perf_counter() - t0:.1f} s; answers {answers['answers']} (random weights), "
         f"token counts {[len(t) for t in answers['tokens']]}; launches {n}; "
         + " | ".join(line for line in lines if line.startswith("[")))
@@ -2542,14 +2540,15 @@ def hf_config_of(cfg) -> dict:
 
 
 def eval_yaml(root: str, tmp: str, out_dir: str, anno_file: str, **extra) -> str:
-    """A copy of the serving config with only anno_file, output_dir and
-    dataloader_num_workers rewritten (and ``extra``)."""
+    """A copy of the serving config with only anno_file, output_dir,
+    dataloader_num_workers and max_new_tokens (EVAL_TOKENS) rewritten (and
+    ``extra``)."""
     import yaml
 
     with open(os.path.join(root, SERVING_YAML)) as f:
         d = yaml.safe_load(f)
     d.update(anno_file=anno_file, output_dir=out_dir, dataloader_num_workers=EVAL_WORKERS,
-             **extra)
+             max_new_tokens=EVAL_TOKENS, **extra)
     path = os.path.join(tmp, os.path.basename(out_dir) + ".yaml")
     with open(path, "w") as f:
         yaml.safe_dump(d, f)
@@ -2668,7 +2667,7 @@ def phase_eval(cfg, dev, seed: int, hf_dir: str) -> dict:
     from retake_tpu_torch.utils.config import RetakeConfig
 
     root = os.path.dirname(os.path.abspath(__file__))
-    n_samples = EVAL_VIDEOS * EVAL_QUESTIONS
+    n_samples = EVAL_RUN_VIDEOS * EVAL_QUESTIONS
     with open(os.path.join(hf_dir, "config.json"), "w") as f:
         json.dump(hf_config_of(cfg), f)
     check(Qwen2VLConfig.from_pretrained(hf_dir) == cfg, "config.json of the 2B geometry")
@@ -2683,9 +2682,15 @@ def phase_eval(cfg, dev, seed: int, hf_dir: str) -> dict:
             for i in range(EVAL_FRAMES):
                 os.symlink(os.path.join(tmp, f"vid{v}", f"{i:06d}.jpg"),
                            os.path.join(host_dir, f"{v * EVAL_FRAMES + i:06d}.jpg"))
-        log(f"[23] wrote {HOST_FRAMES} JPEG frames (448x252) and a {n_samples}-sample "
-            f"Video-MME benchmark ({EVAL_VIDEOS} videos x {EVAL_FRAMES} frames) in "
-            f"{time.perf_counter() - t0:.1f} s")
+        with open(anno_file) as f:
+            annos = json.load(f)
+        run_anno = os.path.join(tmp, "videomme_run.json")  # the first EVAL_RUN_VIDEOS videos
+        with open(run_anno, "w") as f:
+            json.dump(annos[:n_samples], f)
+        log(f"[23] wrote {HOST_FRAMES} JPEG frames (448x252) and a "
+            f"{EVAL_VIDEOS * EVAL_QUESTIONS}-sample Video-MME benchmark ({EVAL_VIDEOS} videos x "
+            f"{EVAL_FRAMES} frames; the runs take the first {n_samples} samples, "
+            f"{EVAL_TOKENS} tokens each) in {time.perf_counter() - t0:.1f} s")
 
         # the quantizer, as a user runs it, over phase 21's checkpoint
         qdir = os.path.join(tmp, "int8")
@@ -2717,7 +2722,7 @@ def phase_eval(cfg, dev, seed: int, hf_dir: str) -> dict:
 
         # one process, in this process: _load_engine's pre-quantized branch
         inline_dir = os.path.join(tmp, "inline")
-        rt = RetakeConfig.from_yaml(eval_yaml(root, tmp, inline_dir, anno_file))
+        rt = RetakeConfig.from_yaml(eval_yaml(root, tmp, inline_dir, run_anno))
         t0 = time.perf_counter()
         engine = infer_eval._load_engine(None, qdir, rt, dev)
         processor = Qwen2VLProcessor.from_pretrained(qdir)
@@ -2757,7 +2762,7 @@ def phase_eval(cfg, dev, seed: int, hf_dir: str) -> dict:
         # reuse of each video's features and captured prefix
         reuse_dir = os.path.join(tmp, "reuse")
         rt_reuse = RetakeConfig.from_yaml(
-            eval_yaml(root, tmp, reuse_dir, anno_file, reuse_video_features=True))
+            eval_yaml(root, tmp, reuse_dir, run_anno, reuse_video_features=True))
         engine = Qwen2VLEngine(Qwen2VLConfig.from_pretrained(qdir), engine.model, rt_reuse,
                                device=dev)
         n, wall, stdout, reuse_tokens, recs = run_eval_in_process(
@@ -2773,15 +2778,14 @@ def phase_eval(cfg, dev, seed: int, hf_dir: str) -> dict:
             f"launches {n}; tokens equal to the inline run's per sample {same}, answers "
             f"equal {same_answers:.3f}")
         check(summary and f"reused={n_samples}," in summary[0] and all(same)
-              and n["K3"] == 32 * vit_chunks * EVAL_VIDEOS, ("reuse", summary, same, n))
+              and n["K3"] == 32 * vit_chunks * EVAL_RUN_VIDEOS, ("reuse", summary, same, n))
         del engine, processor, dataset
         torch.cuda.empty_cache()
 
         # the CLI, two processes on this card, over the first MULTI_VIDEOS videos
         multi_dir = os.path.join(tmp, "multi")
         n_multi = MULTI_VIDEOS * EVAL_QUESTIONS
-        with open(anno_file) as f:
-            annos = json.load(f)[:n_multi]
+        annos = annos[:n_multi]
         multi_anno = os.path.join(tmp, "videomme_multi.json")
         with open(multi_anno, "w") as f:
             json.dump(annos, f)
@@ -2816,6 +2820,166 @@ def phase_eval(cfg, dev, seed: int, hf_dir: str) -> dict:
         host_pipeline(host_dir)
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------- phase 25: the first-checkpoint gate and the TTFT / TPOT tool
+
+
+def pallas_copy(root: str, rel: str, tmp: str) -> str:
+    """A copy of ``rel`` in ``tmp`` with ``attn_implementation: "pallas"``
+    and nothing else changed."""
+    with open(os.path.join(root, rel)) as f:
+        text, n = re.subn(r'^attn_implementation: "flash"', 'attn_implementation: "pallas"',
+                          f.read(), flags=re.M)
+    check(n == 1, (rel, "has no single attn_implementation: \"flash\" line"))
+    path = os.path.join(tmp, "pallas_" + os.path.basename(rel))
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def brief(rec: dict) -> dict:
+    """A stage record without its token lists (their lengths instead)."""
+    out = {}
+    for k, v in rec.items():
+        if k == "tokens" and isinstance(v, list) and all(isinstance(t, list) for t in v):
+            out["token_counts"] = [len(t) for t in v]
+        elif k in ("tokens", "streams"):
+            continue
+        else:
+            out[k] = v
+    return out
+
+
+def gate_in_process(argv, counted, counts) -> dict:
+    """Phase 25's gate in this process: every stage through ``counted``,
+    which appends each stage's launches to ``counts``; the checks on what
+    holds on random weights. Returns the launches, summed."""
+    from retake_tpu_torch.tools import first_checkpoint_gate as gate
+
+    t0 = time.perf_counter()
+    rep = gate.report(argv, run=counted)
+    t_in = time.perf_counter() - t0
+    total = {k: sum(n[k] for n in counts) for k in counts[0]}
+    for key in GATE_KEYS[:-1]:
+        log(f"[25] {key}: {json.dumps(brief(rep[key]))}")
+    log(f"[25] in process, the kernels: {t_in:.1f} s, pass {rep['pass']}, launches {total}")
+    errs = {k: v["error"] for k, v in rep.items() if k != "pass" and "error" in v}
+    check(tuple(rep) == GATE_KEYS and not errs, ("gate stages", list(rep), errs))
+    check(set(rep["quant"]["agreement_vs_bf16"])
+          == {"int8-weights", "w8a8", "int8kv-only", "w8a8+int8kv"}, rep["quant"])
+    check(rep["prefix_parity"]["token_exact"], ("prefix reuse not token-exact", rep["prefix_parity"]))
+    check(len(rep["spec_parity"]["agree_prefix_lens"]) == 3, rep["spec_parity"])
+    check(rep["serve_decode_parity"]["token_agreement"] >= GATE_MIN_AGREEMENT,
+          ("plain vs K4 serving streams", rep["serve_decode_parity"]["token_agreement"]))
+    check(rep["http_golden"]["status"] == 200 and rep["http_golden"]["n_tokens"] > 0,
+          rep["http_golden"])
+    check(os.path.exists(os.path.join(rep["videomme_slice"]["results_dir"], "eval_results.csv")),
+          rep["videomme_slice"])
+    check(all(total[k] > 0 for k in ("K1", "K1-int8", "K2", "K3", "K4")),
+          ("a kernel never launched on the gate's path", total))
+    log("[25] waiting for real weights: demo goldens (golden_pass "
+        f"{rep['demo']['golden_pass']}), quant >= 0.90 (ok {rep['quant']['ok']}), HTTP "
+        f"golden (answer {rep['http_golden']['answer']!r}), Video-MME slice accuracy "
+        f"{rep['videomme_slice']['slice_accuracy']}")
+    return total
+
+
+def phase_gate(seed: int, hf_dir: str, smi: str) -> dict:
+    """The first-checkpoint gate on phase 21's 2B checkpoint (phase 23 added
+    its config.json and tokenizer): every stage through the gate's
+    ``report`` in this process, under copies of the published configs with
+    the kernels, each stage's launches read around it; beside it
+    ``python -m retake_tpu_torch.tools.first_checkpoint_gate`` as a process
+    under the published configs ("flash": no K1 or K2), as a user runs it;
+    then ``tools/cal_ttft.py`` at TTFT_FRAMES frames, alone. Random weights cannot
+    give the golden answers: the checks are what holds on them. Returns the
+    in-process stages' launches, summed."""
+    from retake_tpu_torch.eval.synthetic import write_frames, write_videomme
+    from retake_tpu_torch.tools import cal_ttft
+    from retake_tpu_torch.tools import first_checkpoint_gate as gate
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        video = os.path.join(tmp, "video")
+        os.makedirs(video)
+        write_frames(video, GATE_FRAMES, 448, 252, seed + 25, block=4)
+        anno = write_videomme(os.path.join(tmp, "videomme"), [GATE_SAMPLES],
+                              GATE_VIDEOMME_FRAMES, 448, 252, seed + 26, block=4)
+        demo_cfg, vm_cfg = (pallas_copy(root, rel, tmp) for rel in GATE_CONFIGS)
+        argv = ["--hf_path", hf_dir, "--video", video, "--video_frame_extraction_fps", "4",
+                "--videomme_anno", anno, "--videomme_samples", str(GATE_SAMPLES),
+                "--quant_frames", str(GATE_QUANT_FRAMES), "--max_new_tokens", str(GATE_TOKENS),
+                "--device", "cuda"]
+        log(f"[25] wrote a {GATE_FRAMES}-frame and a {GATE_VIDEOMME_FRAMES}-frame 448x252 JPEG "
+            f"directory and the {GATE_SAMPLES}-sample Video-MME slice in "
+            f"{time.perf_counter() - t0:.1f} s; configs {', '.join(GATE_CONFIGS)} copied with "
+            f'attn_implementation "pallas"')
+
+        counts = []
+
+        def counted(module, margv, timeout_s=0):
+            zero_counts()
+            t = time.perf_counter()
+            rc, rec, err = gate.in_process(module, margv, timeout_s)
+            torch.cuda.synchronize()
+            n = read_counts()
+            counts.append(n)
+            flags = " ".join(a for a in margv if a in ("--spec", "--no-reuse"))
+            log(f"[25] {module} {flags}: exit {rc} in {time.perf_counter() - t:.1f} s, launches "
+                f"{n}" + (f"; {err}" if rc else ""))
+            torch.cuda.empty_cache()
+            return rc, rec, err
+
+        # the gate as a user runs it, a process of its own under the published
+        # configs, runs beside the in-process stages (its stages are
+        # processes too: a session of their own, killed together on a failure)
+        torch.cuda.empty_cache()
+        err_path = os.path.join(tmp, "gate.stderr")
+        t0 = time.perf_counter()
+        with open(err_path, "w") as err_f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "retake_tpu_torch.tools.first_checkpoint_gate"] + argv,
+                cwd=root, stdout=subprocess.PIPE, stderr=err_f, text=True, start_new_session=True)
+        try:
+            total = gate_in_process(argv + ["--config", demo_cfg, "--videomme_config", vm_cfg],
+                                    counted, counts)
+            sub_out, _ = proc.communicate(timeout=GATE_TIMEOUT_S)
+            t_sub = time.perf_counter() - t0
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        with open(err_path) as f:
+            sub_err = f.read()[-3000:]
+        lines = sub_out.strip().splitlines()
+        check(len(lines) == 1, ("gate process stdout", sub_out[-2000:], sub_err))
+        sub = json.loads(lines[0])
+        log(f"[25] python -m retake_tpu_torch.tools.first_checkpoint_gate (published configs, "
+            f"beside the in-process stages): exit {proc.returncode} in {t_sub:.1f} s")
+        print(json.dumps({k: brief(v) if isinstance(v, dict) else v for k, v in sub.items()}),
+              flush=True)
+        errs = {k: v["error"] for k, v in sub.items() if k != "pass" and "error" in v}
+        check(tuple(sub) == GATE_KEYS and not errs, ("gate process stages", list(sub), errs))
+        check(proc.returncode == (0 if sub["pass"] else 1), ("gate exit code", proc.returncode))
+
+        # the reference's TTFT / TPOT protocol, 2B with random weights
+        zero_counts()
+        t0 = time.perf_counter()
+        rec = cal_ttft.record(["--random-weights", "--frames", str(TTFT_FRAMES), "--runs",
+                               str(TTFT_RUNS), "--tpot_tokens", str(TPOT_TOKENS), "--config",
+                               demo_cfg, "--device", "cuda"])
+        n = read_counts()
+        log(f"[25] cal_ttft (2B, random weights, {TTFT_FRAMES} frames, {rec['input_tokens']} "
+            f"tokens, attn {rec['attn_implementation']}): TTFT {rec['ttft_s']:.3f} s (runs "
+            f"{[round(t, 3) for t in rec['ttft_runs_s']]}), TPOT {rec['tpot_ms']:.2f} ms/token "
+            f"({rec['tpot_tokens']} tokens in {rec['tpot_total_s']:.2f} s); launches {n}; {smi}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        check(math.isfinite(rec["ttft_s"]) and math.isfinite(rec["tpot_ms"])
+              and rec["tpot_tokens"] == TPOT_TOKENS, rec)
+    torch.cuda.empty_cache()
+    return total
 
 
 # ---------- phase 24: tensor parallelism, two ranks
@@ -3416,6 +3580,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"[1] device {kind} | {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
 
+    # the processes this script starts (phases 23-25) share one bytecode
+    # cache: where site-packages hold no .pyc, each would compile torch's and
+    # transformers' sources again (~10 s a process on the H100 host, PERF.md §6)
+    os.environ["PYTHONPYCACHEPREFIX"] = str(_build.BUILD_DIR / "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
     # 2. build
     t0 = time.perf_counter()
     _build.library()
@@ -3502,6 +3672,11 @@ def main() -> int:
         paths["23 eval"] = phase_eval(cfg, dev, args.seed, hf_dir)
         t23 = time.perf_counter() - t23
         log(f"[23] eval, quantizer, host pipeline: {t23:.1f} s")
+        # 25. the first-checkpoint gate over the same checkpoint, cal_ttft
+        t25 = time.perf_counter()
+        paths["25 gate"] = phase_gate(args.seed, hf_dir, smi)
+        t25 = time.perf_counter() - t25
+        log(f"[25] first-checkpoint gate and cal_ttft: {t25:.1f} s")
 
     # 10-11. 7B at full width and depth in the serving configuration: W8A8
     # linears and the int8 KV cache. init_params quantizes on the device,
@@ -3556,7 +3731,7 @@ def main() -> int:
     ]}
     log(f"[end] chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s (phases 12-16 "
         f"{t_new:.1f} s, 17-20 {t_rest:.1f} s, 21 {t21:.1f} s, 22 {t22:.1f} s, 23 {t23:.1f} s, "
-        f"24 {t24:.1f} s)")
+        f"24 {t24:.1f} s, 25 {t25:.1f} s)")
     log(smi)
     print(json.dumps(kernel_line))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,11 @@ multiple-choice questions (expected A, B, C), each through
 Without a checkpoint, ``--random-weights`` runs the whole pipeline at the
 2B geometry on random weights (the answers are meaningless), and ``--tiny``
 at a tiny geometry; ``--device cpu`` runs on the CPU (the default is the
-GPU, ``cuda``).
+GPU, ``cuda``). ``--spec`` turns on prompt-lookup speculative decoding and
+``--no-reuse`` recomputes vision and the prefill for every question: the
+first-checkpoint gate (``tools/first_checkpoint_gate.py``) holds both to the
+default run. ``--video`` may be a video file or a frame directory (JPEG
+frames extracted at ``--video_frame_extraction_fps``).
 
 Usage:
   python3 -m retake_tpu_torch.demo --hf_path /path/to/Qwen2-VL-7B-Instruct \\
@@ -23,6 +27,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -123,30 +128,57 @@ def build(args, rt):
     return engine, processor
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--hf_path", type=str, default=None)
     p.add_argument("--config", type=str, default="configs/retake_demo.yaml")
     p.add_argument("--video", type=str, default=None)
+    p.add_argument("--video_frame_extraction_fps", type=int, default=25,
+                   help="the fps a --video frame directory was extracted at")
     p.add_argument("--random-weights", action="store_true")
     p.add_argument("--frames", type=int, default=None,
                    help="synthetic frame count when no --video is given")
     p.add_argument("--json", action="store_true",
                    help="also print one JSON line: answers against the expected ones")
+    p.add_argument("--spec", action="store_true",
+                   help="prompt-lookup speculative decoding (spec_decode: true)")
     p.add_argument("--no-reuse", action="store_true",
                    help="run vision and the whole prefill for every question")
+    p.add_argument("--max_new_tokens", type=int, default=None,
+                   help="token budget of each answer (default: the config's)")
     p.add_argument("--tiny", action="store_true", help="tiny random geometry")
     p.add_argument("--device", type=str, default="cuda")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
 
+
+def record(argv: Optional[List[str]] = None) -> dict:
+    """Run the demo; returns its JSON record (``answers``, ``expected``,
+    ``golden_pass``, ``tokens``)."""
+    return run(parse_args(argv))
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = parse_args(argv)
+    rec = run(args)
+    if args.json:
+        print(json.dumps(rec))
+    return 0
+
+
+def run(args: argparse.Namespace) -> dict:
     from retake_tpu_torch.data.video import fetch_video
     from retake_tpu_torch.runtime.engine import PrefixMismatch
     from retake_tpu_torch.utils.config import RetakeConfig
 
     rt = RetakeConfig.from_yaml(args.config)
+    if args.spec:
+        rt = dataclasses.replace(rt, spec_decode=True)
+    if args.max_new_tokens:
+        rt = dataclasses.replace(rt, max_new_tokens=args.max_new_tokens)
     engine, processor = build(args, rt)
     if args.video:
-        frames = fetch_video(args.video, rt.max_num_frames, rt.sample_fps, rt.longsize_resolution)
+        frames = fetch_video(args.video, rt.max_num_frames, rt.sample_fps, rt.longsize_resolution,
+                             extraction_fps=args.video_frame_extraction_fps)
     else:
         n = args.frames or (8 if args.tiny else 64)
         print(f"no --video given: synthesizing {n} random frames")
@@ -198,10 +230,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"expected: {expected}")
         print(f"[{dt:.1f}s total | prefill {result.prefill_seconds:.1f}s | input "
               f"{result.input_len} tok -> cache {result.cache_len} tok]")
-    if args.json:
-        print(json.dumps({"answers": answers, "expected": EXPECTED_ANSWERS,
-                          "golden_pass": answers == EXPECTED_ANSWERS, "tokens": token_streams}))
-    return 0
+    return {"answers": answers, "expected": EXPECTED_ANSWERS,
+            "golden_pass": answers == EXPECTED_ANSWERS, "tokens": token_streams}
 
 
 if __name__ == "__main__":

@@ -163,3 +163,9 @@ def malm_compress(
     order = torch.argsort(torch.where(sizes > 0, rows, t + rows), dim=0, stable=True)
     keep = order[:tgt_mem_len]  # [tgt, N]
     return torch.gather(bank, 0, keep[..., None].expand(-1, -1, c))
+
+
+def malm_hard_compress(memory_bank: torch.Tensor, tgt_mem_len: int,
+                       sync: bool = False) -> torch.Tensor:
+    """MA-LLM-hard: ``malm_compress(..., hard=True)``."""
+    return malm_compress(memory_bank, tgt_mem_len, sync=sync, hard=True)

@@ -202,3 +202,19 @@ def quantize_siglip_int8(params: dict) -> dict:
     out["vision_tower"] = tower
     out["projector"] = _quantize_keys(params["projector"], ("linear_1", "linear_2"))
     return out
+
+
+def param_bytes(params) -> int:
+    """Bytes held by a parameter tree (nested dicts of tensors) or by a
+    module's parameters and buffers."""
+    if isinstance(params, torch.nn.Module):
+        leaves = [*params.parameters(), *params.buffers()]
+    else:
+        leaves, stack = [], [params]
+        while stack:
+            node = stack.pop()
+            if isinstance(node, dict):
+                stack.extend(node.values())
+            else:
+                leaves.append(node)
+    return sum(x.numel() * x.element_size() for x in leaves)

@@ -3,9 +3,9 @@ CUDA card, beside the ``"pallas"`` arm (K1 / K2).
 
     python3 -m retake_tpu_torch.tools.flash_timing [--frames 512]
 
-Builds the 2B model with random bf16 weights (seed 0) and
-``chip_smoke.py``'s phase-4 request (its ``build_request`` and
-``RETAKE_CONFIG``: ``--frames`` random frames at 448x252). For each arm:
+Builds the 2B model with random bf16 weights (seed 0) and the bench
+request (``tools/bench_model.py``'s ``build_request`` and ``RETAKE_CONFIG``:
+``--frames`` random frames at 448x252). For each arm:
 one warm-up request, one timed request (its TTFT), one request under
 torch.profiler. Then one ``flash_chunk_attention`` call
 at a chunk of that request (S = 2304 rows over a 40960-key budget filled to
@@ -28,6 +28,7 @@ import json
 import statistics
 import subprocess
 import time
+from typing import Optional
 
 import torch
 
@@ -36,17 +37,23 @@ PORT_NAMES = ("flash_prefill_kernel", "row_stats_kernel", "col_sums_kernel", "::
               "vit_attention_kernel", "decode_gapped_kernel")
 
 
-def profiled(fn) -> dict:
-    """``fn()`` under torch.profiler: wall, device busy and its split."""
+def profiled(fn, cuda: bool = True, trace_path: Optional[str] = None) -> dict:
+    """``fn()`` under torch.profiler: wall, device busy and its split
+    (``cuda=False``: host activity only, busy 0); ``trace_path``: also
+    write the Chrome trace there."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    sync()
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        sync()
         wall = time.perf_counter() - t0
+    if trace_path is not None:
+        prof.export_chrome_trace(trace_path)
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
             and not e.key.startswith("Command Buffer")]
     sec = lambda es: sum(e.self_device_time_total for e in es) / 1e6  # noqa: E731
@@ -66,20 +73,19 @@ def main() -> None:
     args = ap.parse_args()
 
     import retake_tpu_torch
-    from chip_smoke import RETAKE_CONFIG, build_request
-    from retake_tpu_torch.models.qwen2_vl import params as params_lib
-    from retake_tpu_torch.models.qwen2_vl.config import qwen2_vl_2b
     from retake_tpu_torch.models.qwen2_vl.model import Qwen2VLModel
     from retake_tpu_torch.ops.attention import flash_chunk_attention
     from retake_tpu_torch.runtime.engine import Qwen2VLEngine
+    from retake_tpu_torch.tools.bench_model import RETAKE_CONFIG, build_model, build_request
     from retake_tpu_torch.utils.config import RetakeConfig
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    cfg = qwen2_vl_2b()
-    model = Qwen2VLModel(cfg, params_lib.init_params(cfg, seed=0, device=dev))
+    cfg, params = build_model(dev)
+    model = Qwen2VLModel(cfg, params)
+    del params
     ids, patches, grid = build_request(cfg, args.frames, dev, 0)
     out = {"module": retake_tpu_torch.__file__, "device": smi, "frames": args.frames}
     with torch.no_grad():

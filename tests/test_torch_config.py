@@ -175,6 +175,10 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import retake_tpu_torch.eval.infer_eval, retake_tpu_torch.tools.quantize_checkpoint\n"
         "import retake_tpu_torch.eval.synthetic, retake_tpu_torch.data.datasets\n"
         "import retake_tpu_torch.data.scorers, retake_tpu_torch.parallel\n"
+        "import retake_tpu_torch.tools.first_checkpoint_gate, retake_tpu_torch.tools.cal_ttft\n"
+        "import retake_tpu_torch.tools.quant_ablation, retake_tpu_torch.tools.profile_trace\n"
+        "import retake_tpu_torch.tools.gate_http_stage, retake_tpu_torch.tools.bench_model\n"
+        "import retake_tpu_torch.tools.gate_serve_decode_stage, chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'retake_tpu' or m.startswith('retake_tpu.')]\n"
         "assert not bad, bad\n"

@@ -41,6 +41,16 @@ def test_malm_hard_keeps_bank_rows(rng):
             assert any(np.array_equal(row, b) for b in bank[:, col])
 
 
+@pytest.mark.parametrize("sync", [False, True])
+def test_malm_hard_compress_matches_jax(rng, sync):
+    """``malm_hard_compress`` (the MA-LLM-hard entry point) against the JAX
+    function on the same bank, 1e-6."""
+    bank = rng.normal(size=(12, 3, 5)).astype(np.float32)
+    want = np.asarray(jdp.malm_hard_compress(jnp.asarray(bank), 4, sync=sync))
+    got = tdp.malm_hard_compress(torch.from_numpy(bank), 4, sync=sync)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+
+
 def test_merge_once_matches_jax(rng):
     """One merge step from a bank with dead frames: bank and sizes."""
     bank = rng.normal(size=(7, 2, 3)).astype(np.float32)

@@ -177,6 +177,15 @@ def test_quantize_llm_and_vit_int8_match_jax(tiny_q):
         np.testing.assert_array_equal(npy(got[name]), w, err_msg=name)
 
 
+def test_param_bytes_matches_jax(tiny_q):
+    """``param_bytes`` of the fp32 tree, of the int8 tree and of the model
+    built on the int8 tree: the JAX function's count of the same trees."""
+    cfg, jp, jq, model_q = tiny_q
+    assert tq8.param_bytes(port_params(jp)) == jq8.param_bytes(jp)
+    assert tq8.param_bytes(port_params(jq)) == jq8.param_bytes(jq)
+    assert tq8.param_bytes(model_q) == jq8.param_bytes(jq)
+
+
 def test_init_params_int8_is_the_quantized_init():
     """init_params(quantize_int8, quantize_vit_int8) quantizes each stack as
     it is drawn: the same leaves as quantizing the fp32 init of the same
