@@ -1040,7 +1040,7 @@ def phase_request(cfg, model, rd: dict, dev, args, tags, rel_tol, min_kept, ref=
         ref.update(tokens=toks, first_logits=res.first_logits,
                    pos=res.cache.pos[:, :, :res.cache_fill].cpu().numpy())
     dec_ms2 = 1e3 * res2.decode_seconds / max(len(res2.tokens) - 1, 1)
-    log(f"[{t5}] warm (stage fences on): TTFT {res2.prefill_seconds:.3f} s, "
+    log(f"[{t5}] warm (stage timer on): TTFT {res2.prefill_seconds:.3f} s, "
         f"decode {dec_ms2:.2f} ms/token, stages "
         + json.dumps({k: round(v, 4) for k, v in (res2.stages or {}).items()}))
     del res, res2
@@ -2402,7 +2402,7 @@ def phase_llava(dev, args, ref=None) -> dict:
             "first_logits": np.array_equal(res.first_logits, res2.first_logits),
             **{f: torch.equal(getattr(res.cache, f)[:, :, :m], getattr(res2.cache, f)[:, :, :m])
                for f in ("k", "v", "pos")}}
-    log(f"[22] warm (stage fences on): TTFT {res2.prefill_seconds:.3f} s, decode "
+    log(f"[22] warm (stage timer on): TTFT {res2.prefill_seconds:.3f} s, decode "
         f"{res2.decode_seconds:.3f} s; stages "
         + json.dumps({k: round(v, 4) for k, v in (res2.stages or {}).items()})
         + f"; bit-exact repeat {same}")

@@ -40,8 +40,10 @@ Package map:
                     ``llava_engine.py``: the LLaVA engine on the same core
   data/             host video loading, the Qwen2-VL and LLaVA processors
                     (jax-free copies of ``retake_tpu/data``)
-  utils/            config surface (YAML), host positions, stage timing,
-                    safetensors I/O, pre-quantized checkpoints
+  utils/            config surface (YAML), host positions, spans and stage
+                    timing (``retake::`` ranges under torch.profiler, stage
+                    seconds from CUDA events), safetensors I/O,
+                    pre-quantized checkpoints
 """
 
 __version__ = "0.1.0"

@@ -57,6 +57,7 @@ from retake_tpu_torch.ops import quantization as q8
 from retake_tpu_torch.ops.cuda import flash_prefill, pivot_scores
 from retake_tpu_torch.parallel.mesh import kv_slice
 from retake_tpu_torch.runtime.cache import KVCache, write_layer_block
+from retake_tpu_torch.utils.profiling import span, spanned
 
 
 def _leaf(x):
@@ -162,6 +163,7 @@ def _mrope_tables(cfg, inv_freq, pos3, attention_scaling, dtype):
     )
 
 
+@spanned("decoder.qkv")
 def _layer_qkv(cfg, model, lp, hidden, cos, sin, act_quant=False):
     """Norm -> q/k/v projections -> RoPE; returns [H, N, D] heads (the
     rank's heads under tensor parallelism)."""
@@ -173,6 +175,7 @@ def _layer_qkv(cfg, model, lp, hidden, cos, sin, act_quant=False):
     return rope.apply_rope(q, cos, sin), rope.apply_rope(k, cos, sin), v
 
 
+@spanned("decoder.mlp")
 def _layer_out_mlp(cfg, model, lp, hidden, attn_flat, act_quant=False):
     """o-projection residual + SwiGLU MLP."""
     hidden = hidden + q8.qlinear(attn_flat, lp["o"], act_quant, model.tp)
@@ -218,14 +221,15 @@ def _layer(
         if cks is not None:
             cks_w, cvs_w = cks[:, :attn_budget], cvs[:, :attn_budget]
 
-    if reforge:  # continue this layer's cached temporal ids contiguously
-        last = torch.clamp(cache_len - 1, min=0).to(torch.int64)
-        prev_t = torch.where(cache_len > 0, cpos[0, last], -1)
-        pos_layer = pos3.clone()
-        pos_layer[0] += prev_t + 1 - pos3[0, 0]
-    else:
-        pos_layer = pos3
-    cos, sin = _mrope_tables(cfg, inv_freq, pos_layer, attention_scaling, hidden.dtype)
+    with span("decoder.rope"):
+        if reforge:  # continue this layer's cached temporal ids contiguously
+            last = torch.clamp(cache_len - 1, min=0).to(torch.int64)
+            prev_t = torch.where(cache_len > 0, cpos[0, last], -1)
+            pos_layer = pos3.clone()
+            pos_layer[0] += prev_t + 1 - pos3[0, 0]
+        else:
+            pos_layer = pos3
+        cos, sin = _mrope_tables(cfg, inv_freq, pos_layer, attention_scaling, hidden.dtype)
     q_rot, k_rot, v = _layer_qkv(cfg, model, lp, hidden, cos, sin, act_quant)
 
     if compress:
@@ -242,67 +246,69 @@ def _layer(
         kq, ksc = q8.quantize_kv_block(k_rot)
         vq, vsc = q8.quantize_kv_block(v)
 
-    fused_scores = None
-    if s == 1:
-        if attn_impl == "xla":
+    with span("decoder.attn"):
+        fused_scores = None
+        if s == 1:
+            if attn_impl == "xla":
+                attn_out = attn_ops.chunk_prefill_attention(
+                    q_rot, ck_w, cv_w, cache_len, k_rot, v, valid_len, cks_w, cvs_w
+                )
+            else:  # append-free single-token attention (no cache copy)
+                attn_out = attn_ops.decode_attention_appendfree(
+                    q_rot, ck_w, cv_w, cache_len, k_rot, v, cks_w, cvs_w
+                )
+        elif attn_impl == "pallas":
+            attn_out = flash_prefill.flash_prefill_attention(
+                q_rot, ck, cv, cache_len, k_rot if kq is None else kq, v if vq is None else vq,
+                valid_len, cks, cvs, None if kq is None else (ksc, vsc),
+            )
+            if compress:
+                sums = pivot_scores.pivot_score_sums(q_s, k_s, valid_len).sum(dim=0)
+                if tp is not None:  # the rank's KV heads' sum -> all heads'
+                    tp.all_reduce(sums, "sum")
+                fused_scores = sums / (kv_heads * (n_heads // kv_heads))
+        elif attn_impl == "flash":
+            attn_out = attn_ops.flash_chunk_attention(
+                q_rot, ck_w, cv_w, cache_len, k_rot, v, valid_len, k_scale=cks_w, v_scale=cvs_w
+            )
+        else:
             attn_out = attn_ops.chunk_prefill_attention(
                 q_rot, ck_w, cv_w, cache_len, k_rot, v, valid_len, cks_w, cvs_w
             )
-        else:  # append-free single-token attention (no cache copy)
-            attn_out = attn_ops.decode_attention_appendfree(
-                q_rot, ck_w, cv_w, cache_len, k_rot, v, cks_w, cvs_w
-            )
-    elif attn_impl == "pallas":
-        attn_out = flash_prefill.flash_prefill_attention(
-            q_rot, ck, cv, cache_len, k_rot if kq is None else kq, v if vq is None else vq,
-            valid_len, cks, cvs, None if kq is None else (ksc, vsc),
-        )
-        if compress:
-            sums = pivot_scores.pivot_score_sums(q_s, k_s, valid_len).sum(dim=0)
-            if tp is not None:  # the rank's KV heads' sum -> all heads'
-                tp.all_reduce(sums, "sum")
-            fused_scores = sums / (kv_heads * (n_heads // kv_heads))
-    elif attn_impl == "flash":
-        attn_out = attn_ops.flash_chunk_attention(
-            q_rot, ck_w, cv_w, cache_len, k_rot, v, valid_len, k_scale=cks_w, v_scale=cvs_w
-        )
-    else:
-        attn_out = attn_ops.chunk_prefill_attention(
-            q_rot, ck_w, cv_w, cache_len, k_rot, v, valid_len, cks_w, cvs_w
-        )
     hidden = _layer_out_mlp(cfg, model, lp, hidden, _unheads(attn_out), act_quant)
 
     if not compress:
         if kq is not None:
             return hidden, (kq, vq, pos_layer, ksc, vsc)
         return hidden, (k_rot, v, pos_layer, None, None)
-    valid_mask = torch.arange(s, device=hidden.device) < valid_len
-    if fused_scores is not None:  # keypatch force-keep + padding masking
-        scores = fused_scores
-        if keypatch is not None:
-            scores = torch.where(keypatch, 1.0, scores)
-        scores = torch.where(valid_mask, scores, pivotkv.NEG_INF)
-    else:
-        scores = pivotkv.eviction_scores(q_s, k_s, valid_mask, keypatch, tp)
-    if tp is not None:
-        tp.note(scores)
-    perm, kept_mask = pivotkv.keep_partition(scores, keep_len)
-    # per-key scales: quantize-then-permute == permute-then-quantize
-    v_block, vs_block = (v[:, perm], None) if vq is None else (vq[:, perm], vsc[:, perm])
-    pos_block = pos_layer[:, perm]
-    if not reforge:
-        if kq is None:
-            return hidden, (k_rot[:, perm], v_block, pos_block, None, vs_block)
-        return hidden, (kq[:, perm], v_block, pos_block, ksc[:, perm], vs_block)
-    pos_block[0] = pivotkv.rescale_temporal_positions(
-        pos_block[0], kept_mask, keep_len, valid_len
-    )
-    cos_c, sin_c = _mrope_tables(cfg, inv_freq, pos_block, attention_scaling, hidden.dtype)
-    k_block = rope.apply_rope(k_s[:, perm], cos_c, sin_c)
-    ks_block = None
-    if kq is not None:  # reforge rewrote the keys: a new quantization of new data
-        k_block, ks_block = q8.quantize_kv_block(k_block)
-    return hidden, (k_block, v_block, pos_block, ks_block, vs_block)
+    with span("decoder.evict"):
+        valid_mask = torch.arange(s, device=hidden.device) < valid_len
+        if fused_scores is not None:  # keypatch force-keep + padding masking
+            scores = fused_scores
+            if keypatch is not None:
+                scores = torch.where(keypatch, 1.0, scores)
+            scores = torch.where(valid_mask, scores, pivotkv.NEG_INF)
+        else:
+            scores = pivotkv.eviction_scores(q_s, k_s, valid_mask, keypatch, tp)
+        if tp is not None:
+            tp.note(scores)
+        perm, kept_mask = pivotkv.keep_partition(scores, keep_len)
+        # per-key scales: quantize-then-permute == permute-then-quantize
+        v_block, vs_block = (v[:, perm], None) if vq is None else (vq[:, perm], vsc[:, perm])
+        pos_block = pos_layer[:, perm]
+        if not reforge:
+            if kq is None:
+                return hidden, (k_rot[:, perm], v_block, pos_block, None, vs_block)
+            return hidden, (kq[:, perm], v_block, pos_block, ksc[:, perm], vs_block)
+        pos_block[0] = pivotkv.rescale_temporal_positions(
+            pos_block[0], kept_mask, keep_len, valid_len
+        )
+        cos_c, sin_c = _mrope_tables(cfg, inv_freq, pos_block, attention_scaling, hidden.dtype)
+        k_block = rope.apply_rope(k_s[:, perm], cos_c, sin_c)
+        ks_block = None
+        if kq is not None:  # reforge rewrote the keys: a new quantization of new data
+            k_block, ks_block = q8.quantize_kv_block(k_block)
+        return hidden, (k_block, v_block, pos_block, ks_block, vs_block)
 
 
 def _device_int(x, device) -> torch.Tensor:
@@ -348,7 +354,8 @@ def decoder_chunk(
             cache.k_scale[i] if quantized else None, cache.v_scale[i] if quantized else None,
             attn_budget,
         )
-        write_layer_block(cache, i, *blocks)
+        with span("decoder.cache"):
+            write_layer_block(cache, i, *blocks)
     cache.length += keep_len if compress else valid_len
     return hidden, cache
 
@@ -414,16 +421,18 @@ def decode_step_batch(
     k_blocks, v_blocks = [], []
     for i in range(cfg.num_hidden_layers):
         lp = model.layers.layer(i)
-        pos3 = torch.stack([base_t[i] + gap_filled, pos_rest, pos_rest]).to(torch.int32)
-        cos, sin = _mrope_tables(cfg, inv_freq, pos3, attention_scaling, hidden.dtype)
+        with span("decoder.rope"):
+            pos3 = torch.stack([base_t[i] + gap_filled, pos_rest, pos_rest]).to(torch.int32)
+            cos, sin = _mrope_tables(cfg, inv_freq, pos3, attention_scaling, hidden.dtype)
         q_rot, k_rot, v = _layer_qkv(cfg, model, lp, hidden, cos, sin)  # [H, B, D]
         k_b, v_b = k_rot.transpose(0, 1), v.transpose(0, 1)  # [B, KV, D]
-        attn = attn_ops.decode_attention_batch_gapped(
-            q_rot.transpose(0, 1), k_all[i], v_all[i], final_len, gap_start,
-            gap_filled, k_b, v_b,
-            None if ks_all is None else ks_all[i], None if vs_all is None else vs_all[i],
-            dec_start=dec_start, impl=impl,
-        )  # [B, H, D]
+        with span("decoder.attn"):
+            attn = attn_ops.decode_attention_batch_gapped(
+                q_rot.transpose(0, 1), k_all[i], v_all[i], final_len, gap_start,
+                gap_filled, k_b, v_b,
+                None if ks_all is None else ks_all[i], None if vs_all is None else vs_all[i],
+                dec_start=dec_start, impl=impl,
+            )  # [B, H, D]
         hidden = _layer_out_mlp(cfg, model, lp, hidden, attn.reshape(b, -1))
         k_blocks.append(k_b)
         v_blocks.append(v_b)

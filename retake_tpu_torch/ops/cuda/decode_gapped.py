@@ -44,6 +44,7 @@ import math
 import torch
 
 from retake_tpu_torch.ops.cuda import _build, _checks
+from retake_tpu_torch.utils.profiling import span
 
 NEG_INF = -1e30
 # the kernel's fixed plan (csrc/decode_gapped.cu): columns per tile and per
@@ -160,12 +161,13 @@ def _launch(name, fn_name, query, key_cache, value_cache, final_len, dec_start, 
         raise TypeError(f"{name}: write_end must be a host int on CUDA")
     work, counters = _workspace(query.device, plan)
     out = torch.empty(b * kv * g * (d + 2), dtype=torch.float32, device=query.device)
-    rc = getattr(_build.library(), fn_name)(
-        query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
-        *(sc.data_ptr() for sc in scales),
-        final_len.data_ptr(), dec_start.data_ptr(), work.data_ptr(), counters.data_ptr(),
-        out.data_ptr(), b, kv, g, s, d, write_end, _build.stream_of(query),
-    )
+    with span("k4_int8" if scales else "k4"):
+        rc = getattr(_build.library(), fn_name)(
+            query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
+            *(sc.data_ptr() for sc in scales),
+            final_len.data_ptr(), dec_start.data_ptr(), work.data_ptr(), counters.data_ptr(),
+            out.data_ptr(), b, kv, g, s, d, write_end, _build.stream_of(query),
+        )
     _build.check(rc, name)
     n = b * kv * g
     return (out.as_strided((b, kv, g, d), (kv * g * d, g * d, d, 1)),

@@ -28,6 +28,7 @@ import torch
 from retake_tpu_torch.ops import attention
 from retake_tpu_torch.ops.cuda import _build, _checks
 from retake_tpu_torch.ops.quantization import quantize_kv_block
+from retake_tpu_torch.utils.profiling import span
 
 BK = 64  # keys per K/V tile
 BQ = 128  # query rows per CTA: 64 per consumer warpgroup
@@ -124,11 +125,12 @@ def flash_prefill_attention(
     cl = _checks.device_scalar(name, cache_len, query)
     vl = _checks.device_scalar(name, valid_len, query)
     out = torch.empty_like(query)
-    rc = _build.library().retake_flash_prefill_bf16(
-        query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
-        key_new.data_ptr(), value_new.data_ptr(), cl.data_ptr(), vl.data_ptr(),
-        out.data_ptr(), kv, h // kv, s, budget, d, _build.stream_of(query),
-    )
+    with span("k1"):
+        rc = _build.library().retake_flash_prefill_bf16(
+            query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
+            key_new.data_ptr(), value_new.data_ptr(), cl.data_ptr(), vl.data_ptr(),
+            out.data_ptr(), kv, h // kv, s, budget, d, _build.stream_of(query),
+        )
     _build.check(rc, name)
     flash_prefill_attention.launches += 1
     return out
@@ -152,12 +154,13 @@ def flash_prefill_attention_int8(
     cl = _checks.device_scalar(name, cache_len, query)
     vl = _checks.device_scalar(name, valid_len, query)
     out = torch.empty_like(query)
-    rc = _build.library().retake_flash_prefill_int8(
-        query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
-        key_new.data_ptr(), value_new.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-        kn_scale.data_ptr(), vn_scale.data_ptr(), cl.data_ptr(), vl.data_ptr(),
-        out.data_ptr(), kv, h // kv, s, budget, d, _build.stream_of(query),
-    )
+    with span("k1_int8"):
+        rc = _build.library().retake_flash_prefill_int8(
+            query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
+            key_new.data_ptr(), value_new.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+            kn_scale.data_ptr(), vn_scale.data_ptr(), cl.data_ptr(), vl.data_ptr(),
+            out.data_ptr(), kv, h // kv, s, budget, d, _build.stream_of(query),
+        )
     _build.check(rc, name)
     flash_prefill_attention_int8.launches += 1
     return out

@@ -24,6 +24,7 @@ import math
 import torch
 
 from retake_tpu_torch.ops.cuda import _build, _checks
+from retake_tpu_torch.utils.profiling import span
 
 NEG_INF = -1e30
 # the kernel's fixed plan (csrc/pivot_scores.cu): rows of the fixed block
@@ -117,11 +118,12 @@ def pivot_score_sums(
     vl = _checks.device_scalar(name, valid_len, q_score)
     work = _workspace(q_score.device, plan["workspace_floats"])
     out = torch.empty((kv, s), dtype=torch.float32, device=q_score.device)
-    rc = _build.library().retake_pivot_scores_bf16(
-        q_score.data_ptr(), k_score.data_ptr(), vl.data_ptr(),
-        work.data_ptr(), out.data_ptr(), kv, h // kv, s, d,
-        _build.stream_of(q_score),
-    )
+    with span("k2"):
+        rc = _build.library().retake_pivot_scores_bf16(
+            q_score.data_ptr(), k_score.data_ptr(), vl.data_ptr(),
+            work.data_ptr(), out.data_ptr(), kv, h // kv, s, d,
+            _build.stream_of(q_score),
+        )
     _build.check(rc, name)
     pivot_score_sums.launches += 1
     return out

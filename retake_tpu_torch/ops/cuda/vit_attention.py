@@ -24,6 +24,7 @@ import math
 import torch
 
 from retake_tpu_torch.ops.cuda import _build, _checks
+from retake_tpu_torch.utils.profiling import span
 
 BK = 64  # keys per tile
 BQ = 192  # query rows per CTA: 64 per consumer warpgroup; 576 = 3 x 192
@@ -97,10 +98,11 @@ def vit_attention_qkv(
     _checks.shape(name, cos, (s, d))
     _checks.shape(name, sin, (s, d))
     out = torch.empty((t, s, n * d), dtype=qkv.dtype, device=qkv.device)
-    rc = _build.library().retake_vit_attention_bf16(
-        qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
-        t, s, n, d, _build.stream_of(qkv),
-    )
+    with span("k3"):
+        rc = _build.library().retake_vit_attention_bf16(
+            qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+            t, s, n, d, _build.stream_of(qkv),
+        )
     _build.check(rc, name)
     vit_attention_qkv.launches += 1
     return out

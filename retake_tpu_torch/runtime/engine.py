@@ -92,7 +92,7 @@ from retake_tpu_torch.runtime import cache as cache_lib
 from retake_tpu_torch.runtime.sampling import FIRST, LOOP, Sampler, select_tokens
 from retake_tpu_torch.utils import positions as pos_lib
 from retake_tpu_torch.utils.config import RetakeConfig
-from retake_tpu_torch.utils.profiling import StageTimer
+from retake_tpu_torch.utils.profiling import StageTimer, span, spanned
 
 TEXT_BUCKET = 128  # text segments padded to a multiple of this
 BUDGET_BUCKET = 8192  # cache budgets rounded up to a multiple of this
@@ -301,21 +301,23 @@ class Qwen2VLEngine:
         patches = torch.as_tensor(pixel_values_videos).to(self.device, visual.dtype)
         aq = self.act_quant and visual.int8
         if t <= fcs:
-            return self._vit(patches, t, h, w, aq)
+            with span("vision.chunk", chunk=0, frames=t):
+                return self._vit(patches, t, h, w, aq)
         hw = h * w
         merged_per_t = hw // self.cfg.vision.spatial_merge_size**2
         out_buf = None
         for i in range(0, t, fcs):
             tc = min(fcs, t - i)
-            chunk = patches[i * hw : (i + tc) * hw]
-            if tc < fcs:  # pad the tail to the common shape; frames are independent
-                chunk = torch.nn.functional.pad(chunk, (0, 0, 0, (fcs - tc) * hw))
-            out = self._vit(chunk, fcs, h, w, aq)
-            if out_buf is None:
-                out_buf = torch.empty(
-                    (t * merged_per_t, out.shape[-1]), dtype=out.dtype, device=out.device
-                )
-            out_buf[i * merged_per_t : (i + tc) * merged_per_t] = out[: tc * merged_per_t]
+            with span("vision.chunk", chunk=i // fcs, frames=tc):
+                chunk = patches[i * hw : (i + tc) * hw]
+                if tc < fcs:  # pad the tail to the common shape; frames are independent
+                    chunk = torch.nn.functional.pad(chunk, (0, 0, 0, (fcs - tc) * hw))
+                out = self._vit(chunk, fcs, h, w, aq)
+                if out_buf is None:
+                    out_buf = torch.empty(
+                        (t * merged_per_t, out.shape[-1]), dtype=out.dtype, device=out.device
+                    )
+                out_buf[i * merged_per_t : (i + tc) * merged_per_t] = out[: tc * merged_per_t]
             if on_dispatch is not None:
                 on_dispatch()
         return out_buf
@@ -367,10 +369,10 @@ class Qwen2VLEngine:
         """Vision tower + visual compression (DPSelect keyframes, or MA-LLM /
         MA-LLM-hard frame merging): the question-independent artifact
         ``generate(video_features=...)`` takes."""
-        timer = _timer or StageTimer()
+        timer = _timer or StageTimer(device=self.device)
         cfg, rt = self.cfg, self.retake
         t, h, w = (int(x) for x in np.asarray(video_grid_thw).reshape(-1)[:3])
-        with timer.stage("vision_tower"):
+        with timer.stage("vision", "vision_tower", frames=t):
             video_embeds = self.run_vision(pixel_values_videos, (t, h, w), on_dispatch)
         hw_m = h * w // cfg.vision.spatial_merge_size**2
         tgt = t
@@ -449,6 +451,7 @@ class Qwen2VLEngine:
             self.tp.assert_replicated("generate_batch", *[r.tokens for r in results])
         return results
 
+    @spanned("request")
     def generate(
         self,
         input_ids: np.ndarray,
@@ -466,7 +469,7 @@ class Qwen2VLEngine:
         """One request: prefill and decode -> ``GenerationResult``; with
         ``_prefill_only`` the prefill's ``PrefillState`` instead, with
         ``_capture_reserve`` the ``VideoPrefix``."""
-        timer = StageTimer()
+        timer = StageTimer(device=self.device)
         cfg = self.cfg
         max_new_tokens = max_new_tokens or self.retake.max_new_tokens
         ids = np.asarray(input_ids, dtype=np.int64).reshape(-1)
@@ -504,7 +507,7 @@ class Qwen2VLEngine:
         # by prefill_and_decode; image tokens prefill as text segments
         image_embeds = None
         if pixel_values is not None:
-            with timer.stage("vision_tower_images"):
+            with timer.stage("vision", "vision_tower_images", images=len(igrid)):
                 image_embeds = self.run_vision_images(pixel_values, igrid)
 
         video_embeds = None
@@ -746,119 +749,120 @@ def prefill_and_decode(
     compress_video = rt.kvcache_compression and ratio < 1.0
     prompt_guided = rt.kv.prompt_guided_compression and compress_video
 
-    plan, final_len, max_extent = plan_chunks(
-        ids, video_token_id, chunk_tokens, ratio, compress_video, prompt_guided
-    )
-    # spec decode writes (then rolls back) up to spec_draft K/V entries past
-    # the accepted stream
-    spec = bool(rt.spec_decode) and sampler is None
-    spec_draft = int(rt.spec_draft) if spec else 0
-    needed = max(max_extent, final_len + max_new_tokens + spec_draft)
-    budget = math.ceil(needed / BUDGET_BUCKET) * BUDGET_BUCKET
-
-    # cross-question reuse: the plan through the last video chunk is
-    # question-independent unless the question rides in the video chunks
-    n_prefix_steps = 0
-    if capture_reserve is not None or prefix is not None:
-        if prompt_guided:
-            raise PrefixUnsupported(
-                "prefix reuse requires prompt_guided_compression off (the question "
-                "enters every video chunk)"
-            )
-        vid_steps = [i for i, p in enumerate(plan) if p["kind"] == "video"]
-        if not vid_steps:
-            raise ValueError("no video segment: nothing to capture or reuse")
-        last_vid = vid_steps[-1]
-        split = plan[last_vid]["offset"] + plan[last_vid]["valid"]
-        n_prefix_steps = last_vid + 1
-        if n_prefix_steps == len(plan):
-            raise ValueError("prompt ends with the video span; prefix reuse needs a "
-                             "trailing text (question) segment for the first token")
-        plan_sig = tuple((p["kind"], p["offset"], p["valid"], p["keep"] if p["kind"] == "video"
-                          else -1) for p in plan[:n_prefix_steps])
-        prefix_len = plan[last_vid]["cache_len"] + plan[last_vid]["keep"]
-    if prefix is not None:
-        if split != prefix.split or not np.array_equal(ids[:split], prefix.prefix_ids):
-            raise PrefixMismatch("prompt prefix differs from the captured prefix (same "
-                                 "video, system prompt and frame count required)")
-        if plan_sig != prefix.plan_sig:
-            raise PrefixMismatch("prefill plan diverged from the captured prefix "
-                                 f"(dynamic compression ratio? input_len={s})")
-        if prefix_len != prefix.final_len:
-            raise PrefixMismatch(f"prefix length {prefix_len} != captured {prefix.final_len}")
-        if needed > prefix.budget:
-            raise PrefixBudgetOverflow(
-                f"cache budget {prefix.budget} too small for this question (needs "
-                f"{needed}); re-encode the prefix with a larger reserve_tokens"
-            )
-        budget = prefix.budget
-        if video_embeds is not None:
-            raise ValueError("generate(prefix=...) takes no video embeddings")
-        if image_embeds is not None and np.any(np.flatnonzero(ids == image_token_id) < split):
-            raise NotImplementedError("image tokens inside the captured prefix span")
-    elif capture_reserve is not None:
-        needed = max(max_extent, prefix_len + capture_reserve + max_new_tokens + spec_draft)
+    with span("plan"):
+        plan, final_len, max_extent = plan_chunks(
+            ids, video_token_id, chunk_tokens, ratio, compress_video, prompt_guided
+        )
+        # spec decode writes (then rolls back) up to spec_draft K/V entries past
+        # the accepted stream
+        spec = bool(rt.spec_decode) and sampler is None
+        spec_draft = int(rt.spec_draft) if spec else 0
+        needed = max(max_extent, final_len + max_new_tokens + spec_draft)
         budget = math.ceil(needed / BUDGET_BUCKET) * BUDGET_BUCKET
 
-    # device inputs: ids/positions/keypatch padded to the plan's extent, and
-    # every step's (valid_len, keep_len) in one table (a prompt-guided
-    # chunk's valid rows include the prompt)
-    s_pad = max(max(p["offset"] + p["chunk_len"] for p in plan), s)
-    ids_pad = np.zeros(s_pad, dtype=np.int64)
-    ids_pad[:s] = ids
-    pos_pad = np.zeros((3, s_pad), dtype=np.int32)
-    pos_pad[:, :s] = pos
-    if s_pad > s:  # continue positions into padding (masked anyway)
-        pos_pad[:, s:] = pos[:, -1:] + np.arange(1, s_pad - s + 1)
-    kp_pad = np.zeros(s_pad, dtype=bool)
-    kp_pad[:s] = keypatch_tokens
-    ids_dev = torch.from_numpy(ids_pad).to(device)
-    pos_dev = torch.from_numpy(pos_pad).to(device)
-    kp_dev = torch.from_numpy(kp_pad).to(device)
-    lens_dev = torch.tensor(
-        [[p["valid"] + p["prompt_len"], p["keep"]] for p in plan] + [[1, 1]], dtype=torch.int32
-    ).to(device)
+        # cross-question reuse: the plan through the last video chunk is
+        # question-independent unless the question rides in the video chunks
+        n_prefix_steps = 0
+        if capture_reserve is not None or prefix is not None:
+            if prompt_guided:
+                raise PrefixUnsupported(
+                    "prefix reuse requires prompt_guided_compression off (the question "
+                    "enters every video chunk)"
+                )
+            vid_steps = [i for i, p in enumerate(plan) if p["kind"] == "video"]
+            if not vid_steps:
+                raise ValueError("no video segment: nothing to capture or reuse")
+            last_vid = vid_steps[-1]
+            split = plan[last_vid]["offset"] + plan[last_vid]["valid"]
+            n_prefix_steps = last_vid + 1
+            if n_prefix_steps == len(plan):
+                raise ValueError("prompt ends with the video span; prefix reuse needs a "
+                                 "trailing text (question) segment for the first token")
+            plan_sig = tuple((p["kind"], p["offset"], p["valid"], p["keep"] if p["kind"] == "video"
+                              else -1) for p in plan[:n_prefix_steps])
+            prefix_len = plan[last_vid]["cache_len"] + plan[last_vid]["keep"]
+        if prefix is not None:
+            if split != prefix.split or not np.array_equal(ids[:split], prefix.prefix_ids):
+                raise PrefixMismatch("prompt prefix differs from the captured prefix (same "
+                                     "video, system prompt and frame count required)")
+            if plan_sig != prefix.plan_sig:
+                raise PrefixMismatch("prefill plan diverged from the captured prefix "
+                                     f"(dynamic compression ratio? input_len={s})")
+            if prefix_len != prefix.final_len:
+                raise PrefixMismatch(f"prefix length {prefix_len} != captured {prefix.final_len}")
+            if needed > prefix.budget:
+                raise PrefixBudgetOverflow(
+                    f"cache budget {prefix.budget} too small for this question (needs "
+                    f"{needed}); re-encode the prefix with a larger reserve_tokens"
+                )
+            budget = prefix.budget
+            if video_embeds is not None:
+                raise ValueError("generate(prefix=...) takes no video embeddings")
+            if image_embeds is not None and np.any(np.flatnonzero(ids == image_token_id) < split):
+                raise NotImplementedError("image tokens inside the captured prefix span")
+        elif capture_reserve is not None:
+            needed = max(max_extent, prefix_len + capture_reserve + max_new_tokens + spec_draft)
+            budget = math.ceil(needed / BUDGET_BUCKET) * BUDGET_BUCKET
 
-    if video_embeds is not None:
-        n_video_tokens = int(np.sum(ids == video_token_id))
-        if n_video_tokens != video_embeds.shape[0]:
-            raise ValueError(
-                "Video features and video tokens do not match: tokens: "
-                f"{n_video_tokens}, features {video_embeds.shape[0]}"
+        # device inputs: ids/positions/keypatch padded to the plan's extent, and
+        # every step's (valid_len, keep_len) in one table (a prompt-guided
+        # chunk's valid rows include the prompt)
+        s_pad = max(max(p["offset"] + p["chunk_len"] for p in plan), s)
+        ids_pad = np.zeros(s_pad, dtype=np.int64)
+        ids_pad[:s] = ids
+        pos_pad = np.zeros((3, s_pad), dtype=np.int32)
+        pos_pad[:, :s] = pos
+        if s_pad > s:  # continue positions into padding (masked anyway)
+            pos_pad[:, s:] = pos[:, -1:] + np.arange(1, s_pad - s + 1)
+        kp_pad = np.zeros(s_pad, dtype=bool)
+        kp_pad[:s] = keypatch_tokens
+        ids_dev = torch.from_numpy(ids_pad).to(device)
+        pos_dev = torch.from_numpy(pos_pad).to(device)
+        kp_dev = torch.from_numpy(kp_pad).to(device)
+        lens_dev = torch.tensor(
+            [[p["valid"] + p["prompt_len"], p["keep"]] for p in plan] + [[1, 1]], dtype=torch.int32
+        ).to(device)
+
+        if video_embeds is not None:
+            n_video_tokens = int(np.sum(ids == video_token_id))
+            if n_video_tokens != video_embeds.shape[0]:
+                raise ValueError(
+                    "Video features and video tokens do not match: tokens: "
+                    f"{n_video_tokens}, features {video_embeds.shape[0]}"
+                )
+            vstart = int(np.where(ids == video_token_id)[0][0])
+            if not np.all(ids[vstart : vstart + n_video_tokens] == video_token_id):
+                raise NotImplementedError("multiple non-contiguous video token spans in one prompt")
+            embeds = torch.cat([
+                text.embed(model, ids_dev[:vstart]),
+                video_embeds.to(model.dtype),
+                text.embed(model, ids_dev[vstart + n_video_tokens :]),
+            ])
+        else:
+            embeds = text.embed(model, ids_dev)
+        if image_embeds is not None:
+            # each contiguous image-token span takes the next rows of the
+            # concatenated image embeddings (masked_scatter order)
+            img_idx = np.flatnonzero(ids == image_token_id)
+            if len(img_idx) != image_embeds.shape[0]:
+                raise ValueError(f"image tokens {len(img_idx)} != image features "
+                                 f"{image_embeds.shape[0]}")
+            breaks = np.flatnonzero(np.diff(img_idx) > 1)
+            starts = np.concatenate([img_idx[:1], img_idx[breaks + 1]])
+            ends = np.concatenate([img_idx[breaks] + 1, img_idx[-1:] + 1])
+            off = 0
+            for s0, e0 in zip(starts.tolist(), ends.tolist()):
+                embeds[s0:e0] = image_embeds[off : off + e0 - s0].to(embeds.dtype)
+                off += e0 - s0
+        video_embeds = image_embeds = None
+
+        if prefix is not None:  # the snapshot serves the video's other questions
+            kv = _fork_cache(prefix.cache)
+        else:
+            kv = cache_lib.init_cache(  # the rank's KV heads under tensor parallelism
+                cfg.num_hidden_layers, model.num_kv_heads, budget, cfg.head_dim,
+                dtype=embeds.dtype, device=device, quantized=rt.kv_cache_dtype == "int8",
             )
-        vstart = int(np.where(ids == video_token_id)[0][0])
-        if not np.all(ids[vstart : vstart + n_video_tokens] == video_token_id):
-            raise NotImplementedError("multiple non-contiguous video token spans in one prompt")
-        embeds = torch.cat([
-            text.embed(model, ids_dev[:vstart]),
-            video_embeds.to(model.dtype),
-            text.embed(model, ids_dev[vstart + n_video_tokens :]),
-        ])
-    else:
-        embeds = text.embed(model, ids_dev)
-    if image_embeds is not None:
-        # each contiguous image-token span takes the next rows of the
-        # concatenated image embeddings (masked_scatter order)
-        img_idx = np.flatnonzero(ids == image_token_id)
-        if len(img_idx) != image_embeds.shape[0]:
-            raise ValueError(f"image tokens {len(img_idx)} != image features "
-                             f"{image_embeds.shape[0]}")
-        breaks = np.flatnonzero(np.diff(img_idx) > 1)
-        starts = np.concatenate([img_idx[:1], img_idx[breaks + 1]])
-        ends = np.concatenate([img_idx[breaks] + 1, img_idx[-1:] + 1])
-        off = 0
-        for s0, e0 in zip(starts.tolist(), ends.tolist()):
-            embeds[s0:e0] = image_embeds[off : off + e0 - s0].to(embeds.dtype)
-            off += e0 - s0
-    video_embeds = image_embeds = None
-
-    if prefix is not None:  # the snapshot serves the video's other questions
-        kv = _fork_cache(prefix.cache)
-    else:
-        kv = cache_lib.init_cache(  # the rank's KV heads under tensor parallelism
-            cfg.num_hidden_layers, model.num_kv_heads, budget, cfg.head_dim,
-            dtype=embeds.dtype, device=device, quantized=rt.kv_cache_dtype == "int8",
-        )
 
     # resume: the prefix steps live in the forked cache; capture: stop after
     # the last video chunk (the suffix runs per question)
@@ -866,20 +870,23 @@ def prefill_and_decode(
     n_run = n_prefix_steps if capture_reserve is not None else len(plan)
     prompt_offset = plan[-1]["offset"]
     hidden = None
-    with timer.stage("prefill_chunks"):
+    with timer.stage("prefill_chunks", steps=n_run - first):
         for i in range(first, n_run):
             step = plan[i]
             off, n = step["offset"], step["chunk_len"]
-            if step["prompt_len"]:
-                x, p3, kp = _prompt_block(embeds, pos_dev, kp_dev, step, prompt_offset)
-            else:
-                x, p3, kp = embeds[off : off + n], pos_dev[:, off : off + n], kp_dev[off : off + n]
-            hidden, kv = text.decoder_chunk(
-                model, cfg, kv, x, p3, lens_dev[i, 0], kp, lens_dev[i, 1],
-                compress=step["kind"] == "video" and compress_video,
-                reforge=reforge, attn_impl=attn_impl, act_quant=act_quant,
-                attn_budget=min(step["bucket"], budget),
-            )
+            with span("prefill.chunk", chunk=i, kind=step["kind"], valid=step["valid"],
+                      keep=step["keep"], cache_len=step["cache_len"]):
+                if step["prompt_len"]:
+                    x, p3, kp = _prompt_block(embeds, pos_dev, kp_dev, step, prompt_offset)
+                else:
+                    x, p3 = embeds[off : off + n], pos_dev[:, off : off + n]
+                    kp = kp_dev[off : off + n]
+                hidden, kv = text.decoder_chunk(
+                    model, cfg, kv, x, p3, lens_dev[i, 0], kp, lens_dev[i, 1],
+                    compress=step["kind"] == "video" and compress_video,
+                    reforge=reforge, attn_impl=attn_impl, act_quant=act_quant,
+                    attn_budget=min(step["bucket"], budget),
+                )
             if on_dispatch is not None:
                 on_dispatch()
 
@@ -887,7 +894,6 @@ def prefill_and_decode(
         fill = int(kv.length)  # waits for the prefix steps
         if fill != prefix_len:
             raise RuntimeError(f"prefix cache fill {fill} != planned {prefix_len}")
-        timer.report()
         return VideoPrefix(
             cache=kv, final_len=prefix_len, budget=budget, split=split,
             prefix_ids=np.asarray(ids[:split]).copy(), plan_sig=plan_sig,
@@ -905,7 +911,6 @@ def prefill_and_decode(
     first_logits = logits.cpu().numpy()
 
     if prefill_only:
-        timer.report()
         result = GenerationResult(
             tokens=np.asarray([token_host]), prefill_seconds=t_prefill, cache_len=final_len,
             input_len=s, cache_fill=cache_fill, first_logits=first_logits,
@@ -926,16 +931,17 @@ def prefill_and_decode(
     eos = cfg.eos_token_id
     spec_steps = None
     if max_new_tokens > 1 and token_host != eos:
-        with timer.stage("decode"):
+        with timer.stage("decode", tokens=max_new_tokens - 1):
             if spec:
                 tail = np.full(POOL_PROMPT, -1, np.int64)
                 t = ids[-POOL_PROMPT:]
                 tail[POOL_PROMPT - len(t) :] = t
-                tokens, n_emit, n_steps = _spec_decode_loop(
-                    model, cfg, kv, token_host, decode_pos_base, tail, max_new_tokens - 1,
-                    int(rt.spec_ngram), spec_draft, reforge, attn_impl,
-                    min(_attn_bucket(final_len + max_new_tokens + spec_draft), budget),
-                )
+                with span("decode.spec"):
+                    tokens, n_emit, n_steps = _spec_decode_loop(
+                        model, cfg, kv, token_host, decode_pos_base, tail, max_new_tokens - 1,
+                        int(rt.spec_ngram), spec_draft, reforge, attn_impl,
+                        min(_attn_bucket(final_len + max_new_tokens + spec_draft), budget),
+                    )
                 tokens = tokens[: max_new_tokens - 1]
                 spec_steps = (n_emit, n_steps)
                 timer.totals["spec_tokens_per_step"] = round(n_emit / max(n_steps, 1), 3)
@@ -947,23 +953,23 @@ def prefill_and_decode(
                 window = min(_attn_bucket(final_len + max_new_tokens), budget)
                 steps = []
                 for i in range(max_new_tokens - 1):
-                    hidden, kv = text.decoder_chunk(
-                        model, cfg, kv, text.embed(model, token), pos_base + i,
-                        one, no_keypatch, one, compress=False, reforge=reforge,
-                        attn_impl=attn_impl, attn_budget=window,
-                    )
-                    token = select_tokens(text.final_logits(model, cfg, hidden[0])[None],
-                                          sampler, LOOP, [i])
-                    steps.append(token)
-                    if early_stop and len(steps) > 1 and int(steps[-2]) == eos:
-                        break
+                    with span("decode.step", step=i):
+                        hidden, kv = text.decoder_chunk(
+                            model, cfg, kv, text.embed(model, token), pos_base + i,
+                            one, no_keypatch, one, compress=False, reforge=reforge,
+                            attn_impl=attn_impl, attn_budget=window,
+                        )
+                        token = select_tokens(text.final_logits(model, cfg, hidden[0])[None],
+                                              sampler, LOOP, [i])
+                        steps.append(token)
+                        if early_stop and len(steps) > 1 and int(steps[-2]) == eos:
+                            break
                 tokens = torch.cat(steps).cpu().numpy()
         hit = np.flatnonzero(tokens == eos)
         end = (hit[0] + 1) if len(hit) else len(tokens)
         out_tokens.extend(tokens[:end].tolist())
     t_decode = time.perf_counter() - t0
 
-    timer.report()
     return GenerationResult(
         tokens=np.asarray(out_tokens),
         prefill_seconds=t_prefill,

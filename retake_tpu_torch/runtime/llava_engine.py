@@ -44,7 +44,7 @@ from retake_tpu_torch.runtime.engine import (
 )
 from retake_tpu_torch.runtime.sampling import Sampler
 from retake_tpu_torch.utils.config import RetakeConfig
-from retake_tpu_torch.utils.profiling import StageTimer
+from retake_tpu_torch.utils.profiling import StageTimer, span, spanned
 
 PROJECT_CHUNK = 64  # frames projected and pooled at a time
 
@@ -111,10 +111,12 @@ class LlavaOnevisionEngine:
         fcs = self.retake.frame_chunk_size or t
         out = None
         for i in range(0, t, fcs):
-            feats = self._tower_chunk(frames[i : i + fcs])
-            if out is None:
-                out = torch.empty((t,) + feats.shape[1:], dtype=feats.dtype, device=self.device)
-            out[i : i + feats.shape[0]] = feats
+            with span("vision.chunk", chunk=i // fcs, frames=min(fcs, t - i)):
+                feats = self._tower_chunk(frames[i : i + fcs])
+                if out is None:
+                    out = torch.empty((t,) + feats.shape[1:], dtype=feats.dtype,
+                                      device=self.device)
+                out[i : i + feats.shape[0]] = feats
             if on_dispatch is not None:
                 on_dispatch()
         return out
@@ -174,10 +176,10 @@ class LlavaOnevisionEngine:
         """SigLIP tower, visual compression, projector / pooling / newline:
         the question-independent artifact ``generate(video_features=...)``
         takes (``video_grid_thw`` is unused: the Qwen engine's signature)."""
-        timer = _timer or StageTimer()
+        timer = _timer or StageTimer(device=self.device)
         cfg, rt = self.cfg, self.retake
         t = int(pixel_values_videos.shape[0])
-        with timer.stage("vision_tower"):
+        with timer.stage("vision", "vision_tower", frames=t):
             features = self.run_vision(pixel_values_videos, on_dispatch=on_dispatch)
         hw = cfg.vision.num_patches
         tgt = t
@@ -205,6 +207,7 @@ class LlavaOnevisionEngine:
             embeds = self._project_pool_newline(features)
         return VideoFeatures(embeds=embeds, keymask=keymask_np, t=t, tgt=tgt, hw=hw, grid=None)
 
+    @spanned("request")
     def generate(
         self,
         input_ids: np.ndarray,
@@ -221,7 +224,7 @@ class LlavaOnevisionEngine:
     ):
         """One request: ``GenerationResult``, or with ``_prefill_only`` the
         ``PrefillState``, with ``_capture_reserve`` the ``VideoPrefix``."""
-        timer = StageTimer()
+        timer = StageTimer(device=self.device)
         cfg, rt = self.cfg, self.retake
         max_new_tokens = max_new_tokens or rt.max_new_tokens
         ids = np.asarray(input_ids, dtype=np.int64).reshape(-1)
@@ -229,7 +232,7 @@ class LlavaOnevisionEngine:
 
         image_embeds = None
         if pixel_values is not None:
-            with timer.stage("vision_tower_images"):
+            with timer.stage("vision", "vision_tower_images", images=np.size(image_sizes) // 2):
                 image_embeds = self.run_vision_images(pixel_values, image_sizes)
 
         video_embeds = None

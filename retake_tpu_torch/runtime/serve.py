@@ -107,6 +107,7 @@ from retake_tpu_torch.runtime.engine import (
     batched_decode_impl,
 )
 from retake_tpu_torch.runtime.sampling import Sampler
+from retake_tpu_torch.utils.profiling import span
 
 GAP_ALIGN = 2048  # the shared bucket (prefill bucket + gap) is a multiple of this
 _EVENTS = ("end", "wait", "req")  # the source's events, by their code under TP
@@ -352,16 +353,17 @@ class ContinuousServer:
         read here; the drain harvests). The next segment's carry token is
         the last row, copied: ``_admit`` writes into ``cur_dev``."""
         dev = self.device
-        tokens = _decode_loop_batch(
-            self.engine.model, self.cfg, self.k_all, self.v_all,
-            _dev(self.base_t, dev), _dev(self.pos_rest, dev), _dev(self.final_len, dev),
-            self.p_bucket, self.cur_dev, self.seg, sampler=self.sampler,
-            dec_start=_dev(self.dec_start, dev), i0=self.f_global,
-            done0=_dev(self.done, dev), attn_impl=self.decode_attn_impl,
-            ks_all=self.ks_all, vs_all=self.vs_all, step_off=self.step_off,
-        )
+        with span("serve.segment", live=len(self._slot_req or ()), steps=self.seg):
+            tokens = _decode_loop_batch(
+                self.engine.model, self.cfg, self.k_all, self.v_all,
+                _dev(self.base_t, dev), _dev(self.pos_rest, dev), _dev(self.final_len, dev),
+                self.p_bucket, self.cur_dev, self.seg, sampler=self.sampler,
+                dec_start=_dev(self.dec_start, dev), i0=self.f_global,
+                done0=_dev(self.done, dev), attn_impl=self.decode_attn_impl,
+                ks_all=self.ks_all, vs_all=self.vs_all, step_off=self.step_off,
+            )
+            self.cur_dev = tokens[-1].clone()
         self.f_global += self.seg
-        self.cur_dev = tokens[-1].clone()
         self.emitted = self.emitted + np.int32(self.seg)
         self.staged.append(tokens)
         self.stats["segments_dispatched"] += 1
@@ -408,8 +410,9 @@ class ContinuousServer:
     def _compact(self, counts: np.ndarray):
         self.stats["compactions"] += 1
         dev = self.device
-        _compact_gap(self.k_all, self.v_all, _dev(self.final_len, dev),
-                     _dev(self.dec_start, dev), _dev(counts, dev), self.ks_all, self.vs_all)
+        with span("serve.compact", live=len(self._slot_req or ())):
+            _compact_gap(self.k_all, self.v_all, _dev(self.final_len, dev),
+                         _dev(self.dec_start, dev), _dev(counts, dev), self.ks_all, self.vs_all)
         self.final_len = self.final_len + counts.astype(np.int32)
         self.dec_start[:] = self.p_bucket
         # row0 = base + F: F resets, fold the consumed F into the bases
@@ -453,7 +456,8 @@ class ContinuousServer:
             if arrivals[i] > now():
                 if not idle:
                     return "wait", None
-                time.sleep(arrivals[i] - now())  # idle: block for the next arrival
+                with span("serve.wait"):  # idle: block for the next arrival
+                    time.sleep(max(0.0, arrivals[i] - now()))
             state["next"] = i + 1
             return "req", (requests[i], i, on_tokens, arrivals[i])
 
@@ -689,60 +693,62 @@ class ContinuousServer:
                     ))
                     continue
                 t_pf = now()
-                error = None
-                calls = self.tp.calls if self.tp is not None else 0
-                try:
-                    req_max = int(req.get("max_new_tokens") or self.max_new)
-                    st = self._prefill(req, req_max, req.get("video_key"))
-                except Exception as e:  # the online worker's boundary: fail one request
-                    if not isolate_errors:
-                        raise
-                    if self.tp is not None:
-                        # failed alone only if every rank raised before any
-                        # collective (the same replicated check); else the
-                        # error may be this rank's alone and the ranks no
-                        # longer pair their collectives: the worker ends
-                        # here, and on the other ranks when their next
-                        # collective times out or fails
-                        if self.tp.calls != calls:
-                            raise
-                        self.tp.agree(1)  # returns once every rank failed it too
-                    error = f"{type(e).__name__}: {e}"
-                else:  # every rank computed attn_need alike: no rank decides alone
-                    if self.p_bucket is not None and st.attn_need > self.p_bucket:
-                        msg = (f"request bucket {st.attn_need} exceeds server prefill bucket "
-                               f"{self.p_bucket} (max_new_tokens or video length too large "
-                               "for this server)")
+                with span("serve.admit", request=rid):
+                    error = None
+                    calls = self.tp.calls if self.tp is not None else 0
+                    try:
+                        req_max = int(req.get("max_new_tokens") or self.max_new)
+                        st = self._prefill(req, req_max, req.get("video_key"))
+                    except Exception as e:  # the online worker's boundary: fail one request
                         if not isolate_errors:
-                            raise ValueError(msg)
-                        error = f"ValueError: {msg}"
-                if self.tp is not None and self.tp.check:
-                    state = repr((list(self._vision_cache), list(self._prefix_cache),
-                                  sorted(self.stats.items())))
-                    self.tp.assert_replicated("admission", np.frombuffer(state.encode(), np.uint8))
-                if error:
-                    self.stats["requests_failed"] += 1
-                    emit_result(ServeResult(
-                        request_id=rid, tokens=np.zeros(0, np.int64), arrival_s=arrival,
-                        prefill_start_s=t_pf, first_token_s=now(), finish_s=now(),
-                        cancelled=True, error=error,
-                    ))
-                    continue
-                # blind segments staged during this prefill predate the
-                # admission: harvest them before the new tenant takes a slot
-                drain_staged()
-                if self.p_bucket is None:
-                    self.p_bucket = st.attn_need
-                if self.k_all is None:
-                    self._init_buffers(st)
-                slot = free_slots()[0]
-                self._admit(slot, st, rid)
-                self.slot_max[slot] = req_max
-                slot_req[slot] = rid
-                self.stats["requests_admitted"] += 1
-                slot_tokens[slot] = [st.first_token_host]
-                slot_meta[slot] = dict(arrival=arrival, prefill_start=t_pf,
-                                       first_token=now(), on_tokens=cb, deadline=deadline)
+                            raise
+                        if self.tp is not None:
+                            # failed alone only if every rank raised before any
+                            # collective (the same replicated check); else the
+                            # error may be this rank's alone and the ranks no
+                            # longer pair their collectives: the worker ends
+                            # here, and on the other ranks when their next
+                            # collective times out or fails
+                            if self.tp.calls != calls:
+                                raise
+                            self.tp.agree(1)  # returns once every rank failed it too
+                        error = f"{type(e).__name__}: {e}"
+                    else:  # every rank computed attn_need alike: no rank decides alone
+                        if self.p_bucket is not None and st.attn_need > self.p_bucket:
+                            msg = (f"request bucket {st.attn_need} exceeds server prefill bucket "
+                                   f"{self.p_bucket} (max_new_tokens or video length too large "
+                                   "for this server)")
+                            if not isolate_errors:
+                                raise ValueError(msg)
+                            error = f"ValueError: {msg}"
+                    if self.tp is not None and self.tp.check:
+                        state = repr((list(self._vision_cache), list(self._prefix_cache),
+                                      sorted(self.stats.items())))
+                        self.tp.assert_replicated("admission",
+                                                  np.frombuffer(state.encode(), np.uint8))
+                    if error:
+                        self.stats["requests_failed"] += 1
+                        emit_result(ServeResult(
+                            request_id=rid, tokens=np.zeros(0, np.int64), arrival_s=arrival,
+                            prefill_start_s=t_pf, first_token_s=now(), finish_s=now(),
+                            cancelled=True, error=error,
+                        ))
+                        continue
+                    # blind segments staged during this prefill predate the
+                    # admission: harvest them before the new tenant takes a slot
+                    drain_staged()
+                    if self.p_bucket is None:
+                        self.p_bucket = st.attn_need
+                    if self.k_all is None:
+                        self._init_buffers(st)
+                    slot = free_slots()[0]
+                    self._admit(slot, st, rid)
+                    self.slot_max[slot] = req_max
+                    slot_req[slot] = rid
+                    self.stats["requests_admitted"] += 1
+                    slot_tokens[slot] = [st.first_token_host]
+                    slot_meta[slot] = dict(arrival=arrival, prefill_start=t_pf,
+                                           first_token=now(), on_tokens=cb, deadline=deadline)
                 ret = cb(rid, [int(st.first_token_host)]) if cb is not None else None
                 cancel = self._lead([ret is False])[0]
                 if self.done[slot]:  # EOS at the first token (wins over a cancel)
@@ -770,30 +776,33 @@ class ContinuousServer:
             live slot's stream, finish at EOS / budget / deadline / cancel
             (the cancels are rank 0's under TP)."""
             while len(self.staged) > keep_last:
-                toks = self.staged.pop(0).cpu().numpy()  # [seg, B]
-                ends = {}  # slot -> finished (stream complete), cancel wanted
-                for slot in list(slot_req):
-                    buf = slot_tokens[slot]
-                    cb = slot_meta[slot]["on_tokens"]
-                    dl = slot_meta[slot]["deadline"]
-                    room = int(self.slot_max[slot]) - len(buf)
-                    if room <= 0:
-                        ends[slot] = (True, False)
-                        continue
-                    col = toks[:room, slot]
-                    eos = np.flatnonzero(col == self.cfg.eos_token_id)
-                    if len(eos):
-                        col = col[: eos[0] + 1]
-                    buf.extend(col.tolist())
-                    finished = bool(len(eos)) or len(buf) >= int(self.slot_max[slot])
-                    ret = cb(slot_req[slot], col.tolist()) if cb is not None and len(col) else None
-                    ends[slot] = (finished, (dl is not None and now() > dl) or ret is False)
-                cancels = self._lead([c for _, c in ends.values()])
-                for (slot, (finished, _)), cancel in zip(ends.items(), cancels):
-                    if finished:  # a full stream wins over a same-segment cancel
-                        finish(slot)
-                    elif cancel:
-                        finish(slot, cancelled=True)
+                with span("serve.harvest", live=len(slot_req)):
+                    harvest(self.staged.pop(0).cpu().numpy())  # [seg, B]
+
+        def harvest(toks):
+            ends = {}  # slot -> finished (stream complete), cancel wanted
+            for slot in list(slot_req):
+                buf = slot_tokens[slot]
+                cb = slot_meta[slot]["on_tokens"]
+                dl = slot_meta[slot]["deadline"]
+                room = int(self.slot_max[slot]) - len(buf)
+                if room <= 0:
+                    ends[slot] = (True, False)
+                    continue
+                col = toks[:room, slot]
+                eos = np.flatnonzero(col == self.cfg.eos_token_id)
+                if len(eos):
+                    col = col[: eos[0] + 1]
+                buf.extend(col.tolist())
+                finished = bool(len(eos)) or len(buf) >= int(self.slot_max[slot])
+                ret = cb(slot_req[slot], col.tolist()) if cb is not None and len(col) else None
+                ends[slot] = (finished, (dl is not None and now() > dl) or ret is False)
+            cancels = self._lead([c for _, c in ends.values()])
+            for (slot, (finished, _)), cancel in zip(ends.items(), cancels):
+                if finished:  # a full stream wins over a same-segment cancel
+                    finish(slot)
+                elif cancel:
+                    finish(slot, cancelled=True)
 
         self._slot_req = slot_req  # the prefill hook reads these
         self._drain = drain_staged
@@ -878,7 +887,11 @@ class OnlineHandle:
     def _work(self):
         def source(now, idle):
             try:  # idle: wait (bounded) for a request or the sentinel; busy: poll
-                item = self._q.get(block=idle, timeout=IDLE_POLL_S if idle else None)
+                if idle:
+                    with span("serve.wait"):
+                        item = self._q.get(timeout=IDLE_POLL_S)
+                else:
+                    item = self._q.get(block=False)
             except queue.Empty:
                 return "wait", None
             if item is None:

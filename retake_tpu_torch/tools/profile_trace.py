@@ -7,7 +7,11 @@ torch.profiler with host and CUDA activity (``flash_timing.profiled``) and
 writes its Chrome trace to ``<out>/trace.json`` (open it in Perfetto or
 chrome://tracing). Prints one JSON line: the trace's path, the prefill and
 decode seconds, and the profile's wall, device-busy and top kernels. The
-always-on layer is ``utils/profiling.StageTimer`` (``RETAKE_PROFILE=1``).
+trace holds the port's own ranges (``utils/profiling.span``, named
+``retake::<name>``: the request, its vision chunks, plan, prefill steps and
+decode steps, the decoder layers' parts and the kernel launches) on the
+kernels' clock. Without the profiler, ``utils/profiling.StageTimer``
+(``RETAKE_PROFILE=1``) times the engine's stages from CUDA events.
 
 Usage:
   python3 -m retake_tpu_torch.tools.profile_trace --frames 256 --out results/retake_trace
