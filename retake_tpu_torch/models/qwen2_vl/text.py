@@ -223,8 +223,10 @@ def _layer(
 
     with span("decoder.rope"):
         if reforge:  # continue this layer's cached temporal ids contiguously
-            last = torch.clamp(cache_len - 1, min=0).to(torch.int64)
-            prev_t = torch.where(cache_len > 0, cpos[0, last], -1)
+            # a gather: indexing by a 0-d tensor (``cpos[0, last]``) reads
+            # it on the host, a device wait no CUDA graph can capture
+            last = torch.clamp(cache_len - 1, min=0).to(torch.int64).reshape(1)
+            prev_t = torch.where(cache_len > 0, cpos[0].index_select(0, last), -1)
             pos_layer = pos3.clone()
             pos_layer[0] += prev_t + 1 - pos3[0, 0]
         else:

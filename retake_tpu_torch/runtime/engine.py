@@ -21,7 +21,12 @@ questions, greedy, sampled and speculative decode).
 The plan's per-step lengths go to the device once, as one int32 table, and
 the cache length stays on the device, so chunk steps run without host
 reads; the host waits only for the first token and (with early stop) for
-each decoded token one step late. Speculative decode (``spec_decode``) is
+each decoded token one step late. On a CUDA device a greedy sequential
+decode of ``GRAPH_MIN_STEPS`` steps or more, on one device, runs its step
+0 eagerly, captures step 1 (the embedding, every layer, the cache writes,
+the position's advance) as one CUDA graph (``StepGraph``) and replays it
+once a token; the final logits and the token choice run eagerly after each
+replay. The graph lives for the request. Speculative decode (``spec_decode``) is
 a host loop over verify steps: each reads its verdicts back, and a
 rejected proposal rolls the cache back by its length only.
 
@@ -97,6 +102,7 @@ from retake_tpu_torch.utils.profiling import StageTimer, span, spanned
 TEXT_BUCKET = 128  # text segments padded to a multiple of this
 BUDGET_BUCKET = 8192  # cache budgets rounded up to a multiple of this
 POOL_PROMPT = 256  # prompt-tail tokens the spec-decode matcher can see
+GRAPH_MIN_STEPS = 4  # sequential decode steps from which a CUDA graph replays them
 
 
 def _attn_bucket(fill: int) -> int:
@@ -641,6 +647,47 @@ def _prompt_block(embeds, pos_dev, kp_dev, step, prompt_offset):
     return hidden, pos3, kp
 
 
+def _graph_decode_ok(kv: cache_lib.KVCache, sampler: Optional[Sampler], model,
+                     steps: int) -> bool:
+    """Does the sequential loop replay its steps from a CUDA graph? On a
+    CUDA cache, greedy (a sampler draws on the host's step numbers), on
+    one device (a tensor-parallel layer all-reduces through the group,
+    eagerly), and for at least ``GRAPH_MIN_STEPS`` steps, so the capture
+    pays for itself. Speculative decode has a loop of its own."""
+    return (kv.k.is_cuda and sampler is None and model.tp is None
+            and steps >= GRAPH_MIN_STEPS)
+
+
+class StepGraph:
+    """One sequential decode step, ``step(token) -> hidden``, captured as a
+    CUDA graph over a static token buffer; every other input of the step
+    lives on the device already (the position advanced in place, the
+    cache and its length). The capture runs nothing: ``replay(token)``
+    copies the token into the buffer and launches the graph on the current
+    stream, which returns the step's hidden state in the graph's own
+    output buffer. It is captured on a side stream (the default stream
+    cannot capture), with no synchronize and no cache release, and holds
+    its memory until it is dropped."""
+
+    def __init__(self, step, token: torch.Tensor):
+        self.token = token.clone()
+        self.graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(token.device)
+        side.wait_stream(torch.cuda.current_stream(token.device))
+        with torch.cuda.stream(side):
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.hidden = step(self.token)
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(token.device).wait_stream(side)
+
+    def replay(self, token: torch.Tensor) -> torch.Tensor:
+        self.token.copy_(token)
+        self.graph.replay()
+        return self.hidden
+
+
 def _spec_decode_loop(
     model: Qwen2VLModel,
     cfg: Qwen2VLConfig,
@@ -949,21 +996,40 @@ def prefill_and_decode(
                 early_stop = bool(rt.decode_early_stop)
                 one = lens_dev[-1, 0]
                 no_keypatch = torch.zeros(1, dtype=torch.bool, device=device)
-                pos_base = torch.full((3, 1), decode_pos_base, dtype=torch.int32, device=device)
+                pos = torch.full((3, 1), decode_pos_base, dtype=torch.int32, device=device)
                 window = min(_attn_bucket(final_len + max_new_tokens), budget)
+
+                def step(tok):  # embed, all layers, the cache writes; the position advances
+                    h, _ = text.decoder_chunk(
+                        model, cfg, kv, text.embed(model, tok), pos, one, no_keypatch, one,
+                        compress=False, reforge=reforge, attn_impl=attn_impl,
+                        attn_budget=window,
+                    )
+                    pos.add_(1)
+                    return h
+
+                # step 0 runs eagerly (the warm-up), step 1 captures; the
+                # logits and the token choice stay outside the graph
+                use_graph = _graph_decode_ok(kv, sampler, model, max_new_tokens - 1)
+                graph = None
                 steps = []
                 for i in range(max_new_tokens - 1):
                     with span("decode.step", step=i):
-                        hidden, kv = text.decoder_chunk(
-                            model, cfg, kv, text.embed(model, token), pos_base + i,
-                            one, no_keypatch, one, compress=False, reforge=reforge,
-                            attn_impl=attn_impl, attn_budget=window,
-                        )
+                        if use_graph and i == 1:
+                            with span("decode.capture"):
+                                graph = StepGraph(step, token)
+                        if graph is None:
+                            hidden = step(token)
+                        else:
+                            with span("decode.replay"):
+                                hidden = graph.replay(token)
                         token = select_tokens(text.final_logits(model, cfg, hidden[0])[None],
                                               sampler, LOOP, [i])
                         steps.append(token)
                         if early_stop and len(steps) > 1 and int(steps[-2]) == eos:
                             break
+                if graph is not None:
+                    timer.totals["decode_graph_steps"] = len(steps) - 1
                 tokens = torch.cat(steps).cpu().numpy()
         hit = np.flatnonzero(tokens == eos)
         end = (hit[0] + 1) if len(hit) else len(tokens)
