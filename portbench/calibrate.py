@@ -26,7 +26,6 @@ import numpy as np
 import torch
 
 from portbench import compare, program, run as run_lib, spec as spec_lib, traffic as traffic_lib
-from portbench import weights
 
 
 def _closed(run, engine) -> dict:
@@ -59,7 +58,7 @@ def readings(cell: dict, seed: int, control: bool, seconds: float, device) -> di
     comparison (``portbench/compare.py``) on one seed, worst over the
     requests a run of the cell would check."""
     run = run_lib.Run(cell, seed, seconds, False, device)
-    tree = weights.TREES[run.family](run.config, seed, device)
+    tree = run.family.tree(run.config, seed, device)
     closed = run.traffic["loop"] == "closed"
     if closed:
         picks = [dict(index=0, frames=run.traffic["frames"])]
@@ -69,7 +68,7 @@ def readings(cell: dict, seed: int, control: bool, seconds: float, device) -> di
     served = {}
     with torch.no_grad():
         for name in ("program", "control") if control else ("program",):
-            engine = program.build(run.family, run.config, tree, device, control=name == "control")
+            engine = run.family.build(run.config, tree, device, control=name == "control")
             served[name] = (_closed(run, engine) if closed else
                             _open(run, engine, run.schedule, [p["index"] for p in picks]))
             del engine

@@ -77,12 +77,19 @@ def k4_decode(kv: int, group: int, d: int, live: List[int],
 # ---------- whole requests ----------
 
 
+def head_dim(c: dict) -> int:
+    """The text config's ``head_dim`` where it gives one, else
+    ``hidden_size // num_attention_heads``."""
+    return c.get("head_dim") or c["hidden_size"] // c["num_attention_heads"]
+
+
 def text_linear_flops(c: dict, tokens: int) -> float:
     """q/k/v/o and the SwiGLU MLP over ``tokens`` rows, every layer."""
     d, m, l = c["hidden_size"], c["intermediate_size"], c["num_hidden_layers"]
-    hd = d // c["num_attention_heads"]
+    hd = head_dim(c)
+    qd = c["num_attention_heads"] * hd
     kvd = c["num_key_value_heads"] * hd
-    per_layer = d * d + 2 * d * kvd + d * d + 3 * d * m
+    per_layer = d * qd + 2 * d * kvd + qd * d + 3 * d * m
     return 2.0 * tokens * per_layer * l
 
 
@@ -92,13 +99,13 @@ def lm_head_flops(c: dict, rows: int) -> float:
 
 def attention_flops(c: dict, cache_len: int, valid: int) -> float:
     """[cache | causal chunk] attention over all layers."""
-    hd = c["hidden_size"] // c["num_attention_heads"]
+    hd = head_dim(c)
     keys = valid * cache_len + valid * (valid + 1) / 2
     return 4.0 * c["num_attention_heads"] * hd * keys * c["num_hidden_layers"]
 
 
 def score_flops(c: dict, valid: int) -> float:
-    hd = c["hidden_size"] // c["num_attention_heads"]
+    hd = head_dim(c)
     return 2.0 * c["num_attention_heads"] * valid * valid * hd * c["num_hidden_layers"]
 
 
@@ -151,3 +158,12 @@ def decode_flops(c: dict, context: int, tokens: int) -> float:
     for i in range(tokens):
         total += text_linear_flops(c, 1) + attention_flops(c, context + i, 1)
     return total + lm_head_flops(c, tokens)
+
+
+def request_flops(vision: float, c: dict, steps: List[dict], decode_tokens: int = 0) -> float:
+    """A request's work: ``vision`` (the family's tower), the text prefill
+    of its plan and ``decode_tokens`` decode steps over what the plan kept."""
+    total = vision + prefill_flops(c, steps)
+    if decode_tokens:
+        total += decode_flops(c, sum(s["keep"] for s in steps), decode_tokens)
+    return total

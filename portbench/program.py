@@ -1,15 +1,19 @@
 """The system under test: the PyTorch / CUDA port (``retake_tpu_torch``).
-This is the only module of the benchmark that imports it. It builds an
-engine from the benchmark's configuration and parameter tree, runs
-requests through the engine's own entry points (``generate``,
-``ContinuousServer.run``), and, in a traced run, records the shapes of each
-call into the port's hand-written kernels.
+It runs requests through the engine's own entry points (``generate``,
+``ContinuousServer.run``), taps the logits they compute, and, in a traced
+run, records the shapes of each call into the port's hand-written kernels
+(``portbench/kernels/<k>.py`` name each entry point). The engine itself is
+built by the model family's ``build`` (``portbench/families/<family>.py``).
+This module, the families' ``build`` and the kernel entry points wrapped
+here are all that import the port, and only inside functions; the
+reference (``portbench/reference``) imports nothing of it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import importlib
 import time
 from typing import Dict, List
 
@@ -26,35 +30,6 @@ def retake_config(config: dict, control: bool = False):
     if control:
         d.update(quantization="w8a8", kv_cache_dtype="int8")
     return RetakeConfig.from_dict(d)
-
-
-def build(family: str, config: dict, tree: dict, device, control: bool = False):
-    """An engine over ``tree`` (shared, not copied; ``control`` quantizes a
-    copy of its linears to int8)."""
-    from retake_tpu_torch.ops import quantization as q8
-
-    rt = retake_config(config, control)
-    params = tree
-    if family == "qwen2_vl":
-        from retake_tpu_torch.models.qwen2_vl.config import Qwen2VLConfig
-        from retake_tpu_torch.models.qwen2_vl.model import Qwen2VLModel
-        from retake_tpu_torch.runtime.engine import Qwen2VLEngine
-
-        cfg = Qwen2VLConfig.from_hf_dict(config)
-        if control:
-            params = q8.quantize_llm_int8(tree)
-            params["visual"] = q8.quantize_vit_int8(tree["visual"])
-        return Qwen2VLEngine(cfg, Qwen2VLModel(cfg, params), rt, device=device)
-    if family == "llava_video":
-        from retake_tpu_torch.models.llava_onevision.config import LlavaOnevisionConfig
-        from retake_tpu_torch.models.llava_onevision.model import LlavaOnevisionModel
-        from retake_tpu_torch.runtime.llava_engine import LlavaOnevisionEngine
-
-        cfg = LlavaOnevisionConfig.from_hf_dict(config)
-        if control:
-            params = q8.quantize_siglip_int8(q8.quantize_llm_int8(tree))
-        return LlavaOnevisionEngine(cfg, LlavaOnevisionModel(cfg, params), rt, device=device)
-    raise ValueError(f"unknown model family {family!r}")
 
 
 def generate_kwargs(req: dict) -> dict:
@@ -78,46 +53,52 @@ def server(engine, settings: dict):
 # ---------- kernel calls (traced runs) ----------
 
 
-def _scalar(x):
-    """A device scalar copied now (the cache length advances in place)."""
-    return x.detach().reshape(-1)[:1].clone() if isinstance(x, torch.Tensor) else int(x)
+def device_scalar(x):
+    """A device scalar copied now, on the device (the cache length advances
+    in place)."""
+    return x.detach().reshape(-1)[0].clone() if isinstance(x, torch.Tensor) else int(x)
 
 
-def _int(x) -> int:
+def host_int(x) -> int:
     return int(x.item()) if isinstance(x, torch.Tensor) else int(x)
 
 
-class KernelCalls:
-    """Wraps the port's kernel entry points and records each call's shapes
-    (device scalars copied on the device, read once the stretch is over).
-    It depends on the names in ``recording`` and, for the device time, on
-    the kernel names in ``KERNEL_NAMES``: an entry point that is gone is
-    not wrapped, and its roofline reads nothing."""
+def _host(v):
+    """A recorded value read back: a device scalar as an int, a device
+    vector as a list of ints."""
+    if not isinstance(v, torch.Tensor):
+        return v
+    return host_int(v) if v.dim() == 0 else [int(x) for x in v.tolist()]
 
-    def __init__(self):
-        self.raw: Dict[str, List[dict]] = {"k1": [], "k2": [], "k3": [], "k4": []}
+
+class KernelCalls:
+    """Wraps the entry point of each kernel module (``portbench/kernels/<k>.py``:
+    ``ENTRY``, ``record``) and records each call's shapes, device scalars
+    copied on the device and read once the stretch is over (``resolved``).
+    An entry point that is gone is not wrapped, and its roofline reads
+    nothing."""
+
+    def __init__(self, kernels: Dict[str, object]):
+        self.kernels = kernels  # name -> kernel module (spec.kernels)
+        self.raw: Dict[str, List[dict]] = {k: [] for k in kernels}
 
     @contextlib.contextmanager
     def recording(self):
-        from retake_tpu_torch.ops.cuda import (decode_gapped, flash_prefill, pivot_scores,
-                                                vit_attention)
-
-        wrapped = [
-            (flash_prefill, "flash_prefill_attention", self._k1),
-            (pivot_scores, "pivot_score_sums", self._k2),
-            (vit_attention, "vit_attention_qkv", self._k3),
-            (decode_gapped, "decode_gapped_flash_state", self._k4),
-        ]
         saved = []
-        for mod, name, rec in wrapped:
+        for k, kmod in self.kernels.items():
+            path, name = kmod.ENTRY
+            try:
+                mod = importlib.import_module(path)
+            except ModuleNotFoundError:  # gone from the program: its roofline reads nothing
+                continue
             fn = getattr(mod, name, None)
-            if fn is None:  # gone from the program: its roofline reads nothing
+            if fn is None:
                 continue
             saved.append((mod, name, fn))
 
             @functools.wraps(fn)  # keeps the attributes the wrapped function updates
-            def call(*args, _fn=fn, _rec=rec, **kw):
-                _rec(*args, **kw)
+            def call(*args, _fn=fn, _calls=self.raw[k], _rec=kmod.record, **kw):
+                _calls.append(_rec(*args, **kw))
                 return _fn(*args, **kw)
 
             setattr(mod, name, call)
@@ -127,49 +108,10 @@ class KernelCalls:
             for mod, name, fn in saved:
                 setattr(mod, name, fn)
 
-    def _k1(self, q, kc, vc, cache_len, kn, vn, valid_len, k_scale=None, *a, **kw):
-        self.raw["k1"].append(dict(heads=q.shape[0], kv=kc.shape[0], d=q.shape[2],
-                                   cache_len=_scalar(cache_len), valid=_scalar(valid_len),
-                                   int8_kv=k_scale is not None))
-
-    def _k2(self, q, k, valid_len):
-        self.raw["k2"].append(dict(heads=q.shape[0], kv=k.shape[0], d=q.shape[2],
-                                   valid=_scalar(valid_len)))
-
-    def _k3(self, qkv, cos, sin):
-        t, s, n, _, d = qkv.shape
-        self.raw["k3"].append(dict(t=t, s=s, n=n, d=d))
-
-    def _k4(self, q, kc, vc, final_len, dec_start, write_end, k_scale=None, v_scale=None):
-        self.raw["k4"].append(dict(kv=q.shape[1], group=q.shape[2], d=q.shape[3],
-                                   final_len=final_len.detach().clone(),
-                                   dec_start=dec_start.detach().clone(),
-                                   write_end=_int(write_end), int8_kv=k_scale is not None))
-
     def resolved(self) -> Dict[str, List[dict]]:
-        """Every call with its device scalars read back as ints."""
-        out = {}
-        for k, calls in self.raw.items():
-            res = []
-            for c in calls:
-                c = dict(c)
-                for key in ("cache_len", "valid"):
-                    if key in c:
-                        c[key] = _int(c[key])
-                for key in ("final_len", "dec_start"):
-                    if key in c:
-                        c[key] = [int(x) for x in c[key].tolist()]
-                res.append(c)
-            out[k] = res
-        return out
-
-
-KERNEL_NAMES = {  # device kernel names (profiler) of each port kernel
-    "k1": ("flash_prefill_kernel",),
-    "k2": ("row_stats_kernel", "col_sums_kernel", "::merge_kernel"),
-    "k3": ("vit_attention_kernel",),
-    "k4": ("decode_gapped_kernel",),
-}
+        """Every call with its device scalars read back."""
+        return {k: [{key: _host(v) for key, v in c.items()} for c in calls]
+                for k, calls in self.raw.items()}
 
 
 # ---------- the logits the timed path produces (for the check) ----------

@@ -8,8 +8,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from portbench import counts, program, traffic as traffic_lib
-from portbench.reference import text as plan_lib
+from portbench import counts, spec, traffic as traffic_lib
 
 
 def quantile(values: List[float], q: float) -> float:
@@ -36,29 +35,20 @@ def stage_median(run, *stages: str) -> Optional[float]:
     return median(vals)
 
 
-BOUNDS = {
-    "k1": lambda c: counts.k1_prefill(c["heads"], c["kv"], c["d"], c["cache_len"], c["valid"],
-                                      c["int8_kv"]),
-    "k2": lambda c: counts.k2_scores(c["heads"], c["kv"], c["d"], c["valid"]),
-    "k3": lambda c: counts.k3_vit(c["t"], c["s"], c["n"], c["d"]),
-    "k4": lambda c: counts.k4_decode(
-        c["kv"], c["group"], c["d"],
-        counts.k4_live_columns(c["final_len"], c["dec_start"], c["write_end"]), c["int8_kv"]),
-}
-
-
 def roofline(run, kernel: str, profile: str) -> Optional[float]:
     """Percent: the summed least time of every recorded call of ``kernel``
-    over its summed device time in the traced ``profile``; None where the
-    stretch launched it not."""
+    (its module's ``count``) over its summed device time (its
+    ``DEVICE_NAMES``) in the traced ``profile``; None where the stretch
+    launched it not."""
     calls = run.kernels.get(kernel, [])
     prof = run.profiles.get(profile)
     if not calls or prof is None:
         return None
-    device = prof.device_s(program.KERNEL_NAMES[kernel])
+    kmod = (getattr(run, "kernel_modules", None) or spec.kernels())[kernel]
+    device = prof.device_s(kmod.DEVICE_NAMES)
     if device <= 0:
         return None
-    bound = sum(counts.bound_seconds(BOUNDS[kernel](c)) for c in calls)
+    bound = sum(counts.bound_seconds(kmod.count(c)) for c in calls)
     return 100.0 * bound / device
 
 
@@ -68,20 +58,7 @@ def idle_percent(busy: float, wall: float) -> Optional[float]:
 
 def request_flops(run, frames: int, decode_tokens: int = 0) -> float:
     """The vision tower, the text prefill of the request's plan and
-    ``decode_tokens`` decode steps, as the algorithm needs them."""
-    cfg, tr = run.config, run.traffic
-    ids, grid, chunk = traffic_lib.layout(run.family, cfg, tr, frames)
-    retake = cfg["retake"]
-    if run.family == "qwen2_vl":
-        text, vid = cfg, cfg["video_token_id"]
-        t, h, w = (int(x) for x in grid[0])
-        vision = counts.qwen_vit_flops(cfg["vision_config"], t, h, w)
-    else:
-        text, vid = cfg["text_config"], cfg["video_token_index"]
-        vision = counts.siglip_flops(cfg["vision_config"], text["hidden_size"], frames)
-    steps = plan_lib.plan(ids, vid, chunk, plan_lib.compression_ratio(retake, len(ids)))
-    total = vision + counts.prefill_flops(text, steps)
-    if decode_tokens:
-        final = sum(s["keep"] for s in steps)
-        total += counts.decode_flops(text, final, decode_tokens)
-    return total
+    ``decode_tokens`` decode steps, as the algorithm needs them (the model
+    family's ``request_flops``)."""
+    fam = traffic_lib.family_module(run.family)
+    return fam.request_flops(run.config, run.traffic, frames, decode_tokens)

@@ -36,9 +36,8 @@ import os  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from portbench import compare, program, spec as spec_lib, traffic as traffic_lib, weights  # noqa: E402
+from portbench import compare, program, spec as spec_lib, traffic as traffic_lib  # noqa: E402
 from portbench import trace as trace_lib  # noqa: E402
-from portbench.reference import models as ref_models  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "retake_tpu")
 TRACE_DIR = HERE / "_trace"
@@ -57,13 +56,14 @@ class Run:
         self.cell, self.seed, self.seconds, self.trace = cell, seed, seconds, trace
         self.device = torch.device(device)
         self.config, self.traffic = cell["config"], cell["traffic"]
-        self.family = self.config["family"]
+        self.family = cell.get("family") or spec_lib.family(self.config["family"])  # its module
+        self.kernel_modules = cell.get("kernels") or spec_lib.kernels()
         self.setup_s = None
         self.requests = []  # closed loop: one record a request
         self.schedule, self.results, self.stats = [], [], {}  # open loop
         self.window_s = None
         self.profiles = {}  # name -> trace.Trace
-        self.kernels = {}  # "k1".."k4" -> calls with their shapes
+        self.kernels = {}  # kernel name -> calls with their shapes (program.KernelCalls)
         self.checks = {}  # compared number -> (value, limit)
         self.memory_peak = 0
         self.tap = program.LogitTap()  # the served logits of the window
@@ -90,11 +90,14 @@ def closed_loop(run: Run, engine) -> None:
     the return of the call after a synchronize."""
     tr = run.traffic
     frames, new = tr["frames"], tr["max_new_tokens"]
-    program.generate(engine, run.request(-1, frames), 2)  # warm-up: the cell's shapes
+    # warm-up: the cell's shapes, its whole decode with it (the decode's
+    # CUDA graph is captured from the third token on, so a shorter warm-up
+    # leaves the process's first capture to the window)
+    program.generate(engine, run.request(-1, frames), new)
     run.sync()
     run.setup_s = time.perf_counter() - T_START
     if run.trace:
-        os.environ["RETAKE_PROFILE"] = "1"  # the engine's stage timer (fences the device)
+        os.environ["RETAKE_PROFILE"] = "1"  # the engine's stage timer (CUDA events)
     t0 = time.perf_counter()
     with run.tap.tapping():
         while not run.requests or time.perf_counter() - t0 < run.seconds:
@@ -116,10 +119,14 @@ def closed_loop(run: Run, engine) -> None:
             run.tap.to_host(i)
     run.window_s = time.perf_counter() - t0
     os.environ["RETAKE_PROFILE"] = "0"
+    seen = [r for r in run.requests if r["ttft_s"] is not None]
+    print("portbench: per request, ttft_s " + " ".join(f"{r['ttft_s']:.4f}" for r in seen)
+          + "; decode_s " + " ".join(f"{r['wall_s'] - r['ttft_s']:.4f}" for r in seen),
+          file=sys.stderr)
     run.memory_peak = torch.cuda.max_memory_allocated() if run.device.type == "cuda" else 0
     if run.trace:
         req = run.request(10**6, frames)
-        calls = program.KernelCalls()
+        calls = program.KernelCalls(run.kernel_modules)
         with calls.recording():
             _, run.profiles["prefill"] = trace_lib.profile(
                 lambda: program.generate(engine, req, 1), str(TRACE_DIR), "prefill")
@@ -210,7 +217,7 @@ def open_loop(run: Run, engine) -> None:
     if run.trace:
         span = tr.get("profiled_seconds", run.seconds)
         part = [i for i, a in enumerate(arrivals) if a < span]
-        calls = program.KernelCalls()
+        calls = program.KernelCalls(run.kernel_modules)
         with calls.recording():
             _, run.profiles["serve"] = trace_lib.profile(
                 lambda: program.server(engine, settings).run(
@@ -250,11 +257,7 @@ def reference_logits(run: Run, tree: dict, rec: dict, streams: list) -> list:
     """For each token stream served for request ``rec``, the reference's
     logits at its positions (one reference prefill for all streams)."""
     req = run.request(rec["index"], rec["frames"])
-    if run.family == "qwen2_vl":
-        return ref_models.qwen2_vl_logits(tree, run.config, req["ids"], req["patches"],
-                                          req["grid"][0], streams, run.device)
-    return ref_models.llava_video_logits(tree, run.config, req["ids"], req["video"], streams,
-                                         run.device)
+    return run.family.reference_logits(tree, run.config, req, streams, run.device)
 
 
 def judge(run: Run, tree: dict, tap, rec: dict) -> dict:
@@ -285,9 +288,9 @@ def check(run: Run, tree: dict, samples: list) -> bool:
 def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device) -> dict:
     """Set up, measure and check one run of ``cell``; the result's fields."""
     run = Run(cell, seed, seconds, trace, device)
-    tree = weights.TREES[run.family](run.config, seed, run.device)
+    tree = run.family.tree(run.config, seed, run.device)
     with torch.no_grad():
-        engine = program.build(run.family, run.config, tree, run.device)
+        engine = run.family.build(run.config, tree, run.device)
         drive, sampled = run.gen.loop or LOOPS[run.traffic["loop"]]
         drive(run, engine)
         del engine

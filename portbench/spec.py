@@ -1,9 +1,12 @@
 """Resolve a cell of ``BENCHMARK.json`` by name: its configuration file,
-its traffic mix (parameters in ``traffic/<name>.json``; a generator of its
-own, with or without them, in ``traffic/<name>.py``), its limits, and the
-metric readers it reports, each found by the name the benchmark file gives
-it. Nothing here is specific to one cell: a new cell, configuration, mix
-or metric is new files and entries.
+its model family (``families/<family>.py``, named by the configuration's
+``family`` key), its traffic mix (parameters in ``traffic/<name>.json``; a
+generator of its own, with or without them, in ``traffic/<name>.py``), its
+limits, the metric readers it reports and the kernels a traced run records
+(``kernels/<k>.py``), each found by the name the benchmark file or the
+configuration gives it. Nothing here is specific to one cell: a new cell,
+configuration, model family, mix, metric or kernel is new files and
+entries.
 """
 
 from __future__ import annotations
@@ -61,6 +64,23 @@ def traffic_mix(name: str, root: Path = ROOT):
     return params, traffic_lib.generator(mod)
 
 
+def family(name: str, root: Path = ROOT):
+    """The module of model family ``name``: ``families/<name>.py``, with its
+    ``tree``, ``build``, ``layout``, ``request``, ``reference_logits`` and
+    ``request_flops``."""
+    path = root / "portbench" / "families" / f"{name}.py"
+    if not path.exists():
+        raise SystemExit(f"model family {name!r} has no {path.relative_to(root)}")
+    return _module(path, f"portbench_family_{name}")
+
+
+def kernels(root: Path = ROOT) -> Dict[str, object]:
+    """Every kernel module ``kernels/<k>.py`` by its name ``k``, each with
+    ``ENTRY``, ``record``, ``DEVICE_NAMES`` and ``count``."""
+    return {p.stem: _module(p, f"portbench_kernel_{p.stem}")
+            for p in sorted((root / "portbench" / "kernels").glob("*.py"))}
+
+
 def cell(name: str, root: Path = ROOT) -> Dict:
     """Everything one run of cell ``name`` needs."""
     bench = benchmark(root)
@@ -70,9 +90,11 @@ def cell(name: str, root: Path = ROOT) -> Dict:
     w = cells[name]
     conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
     config = load_json(root / conf["file"])
+    fam = family(config["family"], root)
     traffic, gen = traffic_mix(w["traffic"], root)
     limits = load_json(root / "portbench" / "limits" / f"{name}.json")
     e2e: List[dict] = [m for m in bench["end_to_end"] if reports(m, name)]
     per_layer: List[dict] = [m for m in bench["per_layer"] if reports(m, name)]
-    return dict(name=name, workload=w, config=config, traffic=traffic, generator=gen,
-                limits=limits, end_to_end=e2e, per_layer=per_layer)
+    return dict(name=name, workload=w, config=config, family=fam, traffic=traffic,
+                generator=gen, kernels=kernels(root), limits=limits, end_to_end=e2e,
+                per_layer=per_layer)

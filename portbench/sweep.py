@@ -23,7 +23,7 @@ import sys
 import numpy as np
 import torch
 
-from portbench import program, run as run_lib, spec as spec_lib, traffic as traffic_lib, weights
+from portbench import program, run as run_lib, spec as spec_lib, traffic as traffic_lib
 
 
 def main(argv=None) -> int:
@@ -39,9 +39,9 @@ def main(argv=None) -> int:
     cell = spec_lib.cell(args.workload)
     seeds = [int(s) for s in args.seeds.split(",")]
     run = run_lib.Run(cell, seeds[0], args.seconds, False, "cuda")
-    tree = weights.TREES[run.family](run.config, seeds[0], "cuda")
+    tree = run.family.tree(run.config, seeds[0], "cuda")
     with torch.no_grad():
-        engine = program.build(run.family, run.config, tree, "cuda")
+        engine = run.family.build(run.config, tree, "cuda")
         settings = run.traffic["server"]
         warm = [dict(index=-1 - k, frames=f, max_new_tokens=settings["segment_steps"] + 1,
                      arrival_s=0.0) for k, f in enumerate(sorted(set(run.traffic["frames"])))]

@@ -7,8 +7,8 @@ generator cannot make brings its own in ``portbench/traffic/<name>.py``
 A request is 16 random text ids, the video span, then a 48-id question
 (the request layout of the port's ``tools/bench_model.py``); its pixels are
 drawn on the device from a ``torch.Generator`` seeded from (seed, index).
-Qwen2-VL takes patches of ``frame_hw`` frames (448x252: a 32 x 18 grid),
-LLaVA-Video uint8 frames at its tower's image size.
+The video span and the pixels are the model family's
+(``portbench/families/<family>.py``: ``layout`` and ``request``).
 
 Closed loop (``"loop": "closed"``): one client sends request i + 1 when
 request i has finished; every request has ``frames`` frames and decodes
@@ -54,57 +54,55 @@ def schedule(traffic: dict, seed: int, seconds: float) -> List[dict]:
                  arrival_s=float(arrivals[i])) for i in range(n)]
 
 
-def layout(family: str, config: dict, traffic: dict, frames: int, pre=None, post=None):
-    """(ids, grid, tokens per prefill chunk) of a request of ``frames``
-    frames; ``pre`` / ``post`` are its text ids (zeros when only the
-    layout is wanted). ``grid`` is None for LLaVA-Video."""
-    pre = np.zeros(traffic["prefix_tokens"], np.int64) if pre is None else pre
-    post = np.zeros(traffic["question_tokens"], np.int64) if post is None else post
-    cf = config["retake"].get("longvideo_kwargs", {}).get("chunked_prefill_frames")
-    if family == "qwen2_vl":
-        v = config["vision_config"]
-        tps, ps, m = v["temporal_patch_size"], v["patch_size"], v["spatial_merge_size"]
-        h, w = (x // ps for x in traffic["frame_hw"])
-        t = frames // tps
-        ids = np.concatenate([pre, [config["vision_start_token_id"]],
-                              np.full(t * h * w // m**2, config["video_token_id"]),
-                              [config["vision_end_token_id"]], post]).astype(np.int64)
-        chunk = None if cf is None else min(cf, frames) * h * w // (m * m * tps)
-        return ids, np.array([[t, h, w]]), chunk
-    if family == "llava_video":
-        v = config["vision_config"]
-        g = v["image_size"] // v["patch_size"]
-        per_frame = (-(-g // config.get("pool_stride", 2))) ** 2
-        ids = np.concatenate([pre, np.full(frames * per_frame + 1, config["video_token_index"]),
-                              post]).astype(np.int64)
-        chunk = None if cf is None else min(cf, frames) * per_frame
-        return ids, None, chunk
-    raise ValueError(f"unknown model family {family!r}")
+def family_module(family):
+    """A model family's module (``portbench/families/<name>.py``): ``family``
+    itself, or the module its name finds (``spec.family``)."""
+    from portbench import spec
+
+    return spec.family(family) if isinstance(family, str) else family
 
 
-def request(family: str, config: dict, traffic: dict, seed: int, index: int, frames: int,
-            device) -> dict:
-    """Request ``index``'s inputs: ``ids`` (numpy), and ``patches`` with
-    ``grid`` (Qwen2-VL) or uint8 ``video`` frames (LLaVA-Video), on
-    ``device``."""
+def text_ids(traffic: dict, seed: int, index: int):
+    """Request ``index``'s random text ids before and after the video."""
     rng = np.random.default_rng(_seed(seed, index, 1))
     pre = rng.integers(*TEXT_IDS, size=traffic["prefix_tokens"])
     post = rng.integers(*TEXT_IDS, size=traffic["question_tokens"])
-    ids, grid, _ = layout(family, config, traffic, frames, pre, post)
+    return pre, post
+
+
+def text_or_zeros(traffic: dict, pre=None, post=None):
+    """``pre`` and ``post``, zeros of the mix's lengths where not given."""
+    pre = np.zeros(traffic["prefix_tokens"], np.int64) if pre is None else pre
+    post = np.zeros(traffic["question_tokens"], np.int64) if post is None else post
+    return pre, post
+
+
+def pixel_generator(seed: int, index: int, device) -> torch.Generator:
+    """The generator on ``device`` that request ``index``'s pixels are drawn
+    from."""
     gen = torch.Generator(device=device)
     gen.manual_seed(_seed(seed, index, 2) % 2**63)
-    v = config["vision_config"]
-    if family == "qwen2_vl":
-        t, h, w = (int(x) for x in grid[0])
-        dim = v.get("in_chans", 3) * v["temporal_patch_size"] * v["patch_size"] ** 2
-        raw = torch.randint(0, 255, (t * h * w, dim), generator=gen, device=device,
-                            dtype=torch.int32)
-        patches = ((raw.to(torch.float32) - 127.5) / 64.0).to(torch.bfloat16)
-        return dict(ids=ids, patches=patches, grid=grid, frames=frames)
-    size = v["image_size"]
-    video = torch.randint(0, 256, (frames, size, size, 3), generator=gen, device=device,
-                          dtype=torch.int32).to(torch.uint8)
-    return dict(ids=ids, video=video, frames=frames)
+    return gen
+
+
+def chunk_frames(config: dict) -> Optional[int]:
+    """Frames a prefill chunk, where the configuration chunks the prefill."""
+    return config["retake"].get("longvideo_kwargs", {}).get("chunked_prefill_frames")
+
+
+def layout(family, config: dict, traffic: dict, frames: int, pre=None, post=None):
+    """(ids, grid, tokens per prefill chunk) of a request of ``frames``
+    frames; ``pre`` / ``post`` are its text ids (zeros when only the
+    layout is wanted). ``family`` is the family's module or its name;
+    ``grid`` is its own (None where it has none)."""
+    return family_module(family).layout(config, traffic, frames, pre, post)
+
+
+def request(family, config: dict, traffic: dict, seed: int, index: int, frames: int,
+            device) -> dict:
+    """Request ``index``'s inputs, on ``device``: ``ids`` (numpy) and the
+    family's pixels (``patches`` with ``grid``, or ``video``)."""
+    return family_module(family).request(config, traffic, seed, index, frames, device)
 
 
 HOOKS = ("schedule", "request")  # a mix's module may replace either

@@ -1,4 +1,5 @@
-"""Random parameter trees made by the benchmark from ``--seed``, on the
+"""The draws a model family's parameter tree is made of
+(``portbench/families/<family>.py``: ``tree``), from ``--seed``, on the
 device, in the served type (bf16), one ``torch.randn`` per stacked leaf.
 
 The layout is the one the program takes (its ``params`` trees: linears
@@ -59,61 +60,3 @@ def text_tree(draw: Draw, c: dict) -> dict:
     if not c.get("tie_word_embeddings", False):
         tree["lm_head"] = draw.normal((d, c["vocab_size"]), 1.0 / math.sqrt(d))
     return tree
-
-
-def qwen2_vl_tree(config: dict, seed: int, device) -> dict:
-    """Qwen2-VL: the decoder and the ViT (patch embed without bias, blocks,
-    2x2 merger)."""
-    draw = Draw(seed, device)
-    v = config["vision_config"]
-    e, depth, mlp = v["embed_dim"], v["depth"], v["embed_dim"] * v["mlp_ratio"]
-    pdim = v.get("in_chans", 3) * v["temporal_patch_size"] * v["patch_size"] ** 2
-    merged = e * v["spatial_merge_size"] ** 2
-    visual = {
-        "patch_embed": {"w": draw.normal((pdim, e), 1.0 / math.sqrt(pdim))},
-        "blocks": {
-            "ln1": draw.layer_norm(depth, e),
-            "qkv": draw.linear(depth, e, 3 * e),
-            "proj": draw.linear(depth, e, e),
-            "ln2": draw.layer_norm(depth, e),
-            "fc1": draw.linear(depth, e, mlp),
-            "fc2": draw.linear(depth, mlp, e),
-        },
-        "merger": {
-            "ln_q": draw.layer_norm(e),
-            "fc1": draw.linear(merged, merged),
-            "fc2": draw.linear(merged, v["hidden_size"]),
-        },
-    }
-    tree = text_tree(draw, config)
-    tree["visual"] = visual
-    return tree
-
-
-def llava_video_tree(config: dict, seed: int, device) -> dict:
-    """LLaVA-Video: the decoder, SigLIP (patch embed with bias, learned
-    position embedding, blocks), the projector and ``image_newline``."""
-    draw = Draw(seed, device)
-    v, tc = config["vision_config"], config["text_config"]
-    d, m, l = v["hidden_size"], v["intermediate_size"], v["num_hidden_layers"]
-    g = v["image_size"] // v["patch_size"]
-    pdim = 3 * v["patch_size"] ** 2
-    td = tc["hidden_size"]
-    tree = text_tree(draw, tc)
-    tree["vision_tower"] = {
-        "patch_embed": draw.linear(pdim, d),
-        "pos_embed": draw.normal((g * g, d), 0.02),
-        "blocks": {
-            "ln1": draw.layer_norm(l, d),
-            **{k: draw.linear(l, d, d) for k in ("q", "k", "v", "out")},
-            "ln2": draw.layer_norm(l, d),
-            "fc1": draw.linear(l, d, m),
-            "fc2": draw.linear(l, m, d),
-        },
-    }
-    tree["projector"] = {"linear_1": draw.linear(d, td), "linear_2": draw.linear(td, td)}
-    tree["image_newline"] = draw.normal((td,), 0.02)
-    return tree
-
-
-TREES = {"qwen2_vl": qwen2_vl_tree, "llava_video": llava_video_tree}
